@@ -1,0 +1,131 @@
+"""The port's scene compiler against the reference's: every SceneData field equal.
+
+Tolerance: none. Both compilers run the same float64 host math and cast to float32
+once, so every tensor must equal the reference's array exactly.
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from tpupt.scene import builder as JB
+from tpupt.scenes import SCENES as JSCENES
+from tpupt_torch.scene import builder as TB
+from tpupt_torch.scene import data as TD
+from tpupt_torch.scene.convert import scene_data_from_numpy
+from tpupt_torch.scenes import SCENES as TSCENES
+
+
+def _assert_same(tsd, jsd):
+    for name in TD.tensor_fields():
+        a = getattr(tsd, name)
+        b = np.asarray(getattr(jsd, name))
+        assert a.device.type == "cpu"
+        assert tuple(a.shape) == b.shape, name
+        np.testing.assert_array_equal(a.numpy(), b, err_msg=name)
+        if b.dtype == np.float32:
+            assert a.dtype == torch.float32, name
+    for name in TD.STATIC_FIELDS:
+        assert getattr(tsd, name) == getattr(jsd, name), name
+
+
+@pytest.mark.parametrize("sid", [1, 3])
+def test_compile_matches_reference(sid):
+    _, jbuild = JSCENES[sid]
+    _, tbuild = TSCENES[sid]
+    jc = jbuild(16, 4)[0].compile()
+    tc = tbuild(16, 4)[0].compile(device="cpu")
+    assert tc.has_lights == jc.has_lights
+    _assert_same(tc.data, jc.data)
+
+
+def _hand_scene(B, image):
+    """Moving spheres, a checker, an image texture, an image env, a few triangles."""
+    s = B.Scene()
+    checker = B.CheckerTexture(0.5, B.SolidTexture((0.2, 0.3, 0.1)), B.SolidTexture((0.9, 0.9, 0.9)))
+    s.add_quad((-5.0, 0.0, -5.0), (10.0, 0.0, 0.0), (0.0, 0.0, 10.0), B.Diffuse(checker))
+    for i in range(5):
+        c = (float(i) - 2.0, 0.3, 0.0)
+        s.add_sphere(0.3, c, B.Diffuse((0.5, 0.4, 0.3)), center2=(c[0], 0.8, 0.0))
+    s.add_sphere(0.5, (0.0, 1.0, 2.0), B.Metal((0.7, 0.6, 0.5), checker))
+    s.add_sphere(0.5, (1.5, 1.0, 2.0), B.Glass.basic(1.5))
+    tex = B.ImageTexture(image)
+    s.add_cuboid((0.0, 0.0, 0.0), (1.0, 1.0, 1.0), B.Diffuse(tex),
+                 transform=B.Transform((0.0, 1.0, 0.0), 0.4, (-2.0, 0.0, 3.0)))
+    mesh = dict(
+        positions=np.array([[0, 0, 4], [1, 0, 4], [0, 1, 4], [1, 1, 4.5]], dtype=np.float64),
+        normals=None,
+        uvs=np.array([[0, 0], [1, 0], [0, 1], [1, 1]], dtype=np.float64),
+        indices=np.array([[0, 1, 2], [1, 3, 2]]),
+    )
+    s.add_mesh(mesh, B.Principled((0.6, 0.2, 0.2), metallic=0.3, roughness=0.4))
+    s.add_quad((-1.0, 4.0, -1.0), (2.0, 0.0, 0.0), (0.0, 0.0, 2.0), B.Light((5.0, 5.0, 5.0)), light=True)
+    s.add_sphere(0.2, (2.0, 3.0, 0.0), B.Light((3.0, 2.0, 1.0)), light=True)
+    s.environment = B.ImageTexture(image)
+    return s
+
+
+def _image(tmp_path):
+    from PIL import Image
+
+    img = np.random.default_rng(5).integers(0, 256, (6, 10, 3), dtype=np.uint8)
+    path = str(tmp_path / "tex.png")
+    Image.fromarray(img, mode="RGB").save(path)
+    return img, path
+
+
+def test_compile_hand_scene_matches_reference(tmp_path):
+    img, path = _image(tmp_path)
+    jc = _hand_scene(JB, path).compile(bvh=False)
+    tc = _hand_scene(TB, img).compile(device="cpu")
+    assert tc.has_lights == jc.has_lights
+    _assert_same(tc.data, jc.data)
+    assert tc.data.has_checker and tc.data.has_image_textures and tc.data.env_map_w == 10
+    assert tc.data.n_tris == 8 and tc.data.n_lights_real == 2
+
+
+def test_scene_data_from_numpy(tmp_path):
+    img, path = _image(tmp_path)
+    jsd = _hand_scene(JB, path).compile(bvh=False).data
+    fields = {f.name: np.asarray(getattr(jsd, f.name)) for f in dataclasses.fields(jsd)}
+    static = {n: getattr(jsd, n) for n in ("use_pallas_hit", "has_tri_bvh", *TD.STATIC_FIELDS)}
+    tsd = scene_data_from_numpy(fields, static, device="cpu")
+    _assert_same(tsd, jsd)
+    with pytest.raises(NotImplementedError):
+        scene_data_from_numpy(fields, dict(static, has_tri_bvh=True), device="cpu")
+    with pytest.raises(KeyError):
+        scene_data_from_numpy({"sph_r": fields["sph_r"]}, static, device="cpu")
+
+
+def test_unported_inputs_raise():
+    s = TB.Scene()
+    s.environment = TB.ImageTexture(np.zeros((2, 2, 3), np.uint8), hdr=True)
+    with pytest.raises(NotImplementedError, match="HDR"):
+        s.compile(device="cpu")
+
+    s = TB.Scene()
+    s.add_sphere(1.0, (0, 0, 0), TB.Diffuse(TB.ImageTexture("earthmap.jpg")))
+    with pytest.raises(NotImplementedError, match="io/image"):
+        s.compile(device="cpu")
+
+    rng = np.random.default_rng(0)
+    s = TB.Scene()
+    mesh = dict(positions=rng.normal(size=(200, 3)), normals=None, uvs=None,
+                indices=rng.integers(0, 200, (64, 3)))
+    s.add_mesh(mesh, TB.Diffuse((0.5, 0.5, 0.5)))
+    with pytest.raises(NotImplementedError, match="BVH"):
+        s.compile(device="cpu")
+
+    with pytest.raises(NotImplementedError):
+        TSCENES[2][1](16, 4)
+
+
+def test_default_device_is_cuda():
+    s, _ = TSCENES[3][1](16, 4)
+    if torch.cuda.is_available():
+        assert s.compile().data.device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            s.compile()

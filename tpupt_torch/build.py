@@ -1,0 +1,82 @@
+"""Builds the port's CUDA kernels from ``csrc/`` with nvcc, at first use.
+
+Each source ``csrc/<name>.cu`` becomes a shared library with a plain C interface,
+loaded with ctypes. Libraries go into ``tpupt_torch/_build/`` (git-ignored), named
+by a hash of the source and the flags, so an edited source is rebuilt and an
+unchanged one is loaded as it is. ``build_all`` starts one nvcc per source, all at
+once.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+
+_HERE = os.path.dirname(os.path.abspath(__file__))
+CSRC = os.path.join(_HERE, "csrc")
+BUILD_DIR = os.path.join(_HERE, "_build")
+
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-O3", "-std=c++17",
+    "--fmad=false",  # each multiply and add rounds on its own, like the eager plain versions
+    "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",
+]
+
+_loaded: dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    for cand in (shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA toolkit is needed to build the port's kernels")
+
+
+def _lib_path(name: str) -> str:
+    with open(os.path.join(CSRC, f"{name}.cu"), "rb") as f:
+        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return os.path.join(BUILD_DIR, f"lib{name}_{digest}.so")
+
+
+def _start(name: str):
+    """Start nvcc for `name` unless its library is built -> (path, Popen or None)."""
+    path = _lib_path(name)
+    if os.path.exists(path):
+        return path, None
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{path}.{os.getpid()}.tmp"
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, f"{name}.cu")]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    return path, (proc, tmp)
+
+
+def _finish(name: str, path: str, job) -> str:
+    """Wait for a started build; returns nvcc's report ('' if nothing was built)."""
+    if job is None:
+        return ""
+    proc, tmp = job
+    out, _ = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for csrc/{name}.cu:\n{out}")
+    os.replace(tmp, path)  # atomic: a concurrent loader never sees half a file
+    return out
+
+
+def build_all(names) -> dict[str, str]:
+    """Build every named kernel in parallel -> {name: nvcc report}."""
+    jobs = {name: _start(name) for name in names}
+    return {name: _finish(name, *jobs[name]) for name in names}
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The ctypes library of kernel `name`, built first if needed."""
+    if name not in _loaded:
+        path, job = _start(name)
+        _finish(name, path, job)
+        _loaded[name] = ctypes.CDLL(path)
+    return _loaded[name]

@@ -1,0 +1,269 @@
+"""The path-tracing integrator (counterpart of ``tpupt/render/integrator.py``).
+
+Reproduces the estimator of Camera::trace (camera.rs:170-228):
+
+  for bounce in 0..max_depth:
+      hit = intersect everything in (1e-3, inf)
+      miss  -> radiance += T * environment; stop
+      radiance += T * emitted
+      bounce > 5 -> russian roulette with p = clamp(luminance(T), 0.01, 1)
+      one-sample MIS: with prob p_light sample the light list, else the BSDF
+      (sample = None -> stop)
+      pdf  = p_bsdf * bsdf_pdf + p_light * light_pdf   (mixture, camera.rs:212-214)
+      T   *= eval / pdf
+      next origin = hit + 1e-3 * sign(dir . ng) * ng   (camera.rs:217-222)
+
+Every lane carries an `alive` mask and the wavefront iterates until all lanes are
+done. The loop condition is read on the host, so each wavefront iteration costs
+one device-to-host sync. Division by a zero pdf is left unguarded like the
+reference (NaNs quantize to black in film.py).
+
+p_light is 0.5 iff the scene has lights (camera.rs:199); without lights the
+light-sampling branch is skipped entirely.
+
+The detached estimator for gradients (``detach=True`` in the reference) waits
+for the backward slice (ROADMAP).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..core import linalg as la
+from ..core import rng
+from ..core.dtypes import REAL
+from ..ops import lights as light_ops
+from ..ops.bsdf import bsdf_eval, bsdf_pdf, bsdf_sample, make_shade
+from ..ops.envmap import sample_environment
+from ..ops.intersect import closest_hit
+from .camera import generate_rays
+
+T_MIN = la.f32(1e-3)  # camera.rs:171
+T_MAX = la.BIG
+EPS = la.f32(1e-3)  # bsdf/mod.rs:19
+MIN_BOUNCES = 5  # camera.rs:172
+
+
+def bounce_step(
+    sd, o, d, time, T, L, alive, bounce, pixel_ids, sample_ids, seed, p_light, p_bsdf, has_lights
+):
+    """One bounce of the reference estimator (camera.rs:177-226) over a lane batch.
+
+    `bounce` is an int or a per-lane int tensor. Returns (o_next, d_next, T, L,
+    alive); callers mask o/d updates by `alive`.
+    """
+    hit = closest_hit(sd, o, d, time, T_MIN, T_MAX)
+
+    # miss -> environment (camera.rs:180-183)
+    env = sample_environment(sd, d)
+    missed = alive & ~hit.valid
+    L = L + torch.where(missed[..., None], T * env, 0.0)
+    alive = alive & hit.valid
+
+    # emission from the hit (camera.rs:186-187)
+    shade = make_shade(sd, hit.mat_id, hit.u, hit.v, hit.point, hit.ng, hit.ns, hit.front)
+    L = L + torch.where(alive[..., None], T * shade.emission, 0.0)
+
+    # per-bounce uniforms
+    ctrl = rng.bounce_ctr(bounce)
+    rr_u, mis_r, light_pick, lobe_u = rng.uniform4(seed, pixel_ids, sample_ids, ctrl + rng.SLOT_CTRL)
+    e1, e2, fresnel_u, _ = rng.uniform4(seed, pixel_ids, sample_ids, ctrl + rng.SLOT_BSDF)
+
+    # russian roulette after MIN_BOUNCES (camera.rs:190-196)
+    p = torch.clamp(la.luminance(T), 0.01, 1.0)
+    rr_on = alive & (bounce > MIN_BOUNCES)
+    die = rr_on & (rr_u > p)
+    alive = alive & ~die
+    T = torch.where((rr_on & alive)[..., None], T / p[..., None], T)
+
+    # one-sample MIS between light and BSDF sampling (camera.rs:198-211)
+    view = -d
+    b_dir, b_ok = bsdf_sample(shade, view, lobe_u, e1, e2, fresnel_u)
+    if has_lights:
+        lu1, lu2, _, _ = rng.uniform4(seed, pixel_ids, sample_ids, ctrl + rng.SLOT_LIGHT)
+        l_dir = light_ops.sample_lights(sd, hit.point, time, light_pick, lu1, lu2)
+        use_light = mis_r < p_light
+        new_dir = torch.where(use_light[..., None], l_dir, b_dir)
+        ok = torch.where(use_light, torch.ones_like(b_ok), b_ok)
+    else:
+        new_dir = b_dir
+        ok = b_ok
+    alive = alive & ok
+
+    # mixture pdf + eval (camera.rs:212-216)
+    pdf_b = bsdf_pdf(shade, view, new_dir)
+    if has_lights:
+        pdf_l = light_ops.pdf_lights(sd, hit.point, new_dir, time)
+        pdf = p_bsdf * pdf_b + p_light * pdf_l
+    else:
+        pdf = p_bsdf * pdf_b
+    brdf = bsdf_eval(shade, view, new_dir)
+    atten = brdf / pdf[..., None]  # unguarded, like the reference (camera.rs:216)
+    T = torch.where(alive[..., None], T * atten, T)
+
+    # offset next origin along the geometric normal (camera.rs:217-222)
+    eps = EPS * torch.sign(la.dot(new_dir, hit.ng))
+    o_next = hit.point + eps[..., None] * hit.ng
+    d_next = la.normalize(new_dir, eps=1e-30)  # Ray::new normalizes (ray.rs:26)
+
+    return o_next, d_next, T, L, alive
+
+
+def _mis_probs(has_lights):
+    p_light = 0.5 if has_lights else 0.0
+    return p_light, 1.0 - p_light
+
+
+def trace_radiance(sd, cam, pixel_ids, rows, cols, sample_ids, seed, max_depth, has_lights):
+    """Trace one path per lane -> (radiance [B,3], rays_traced int).
+
+    rays_traced counts the scene intersections of live lanes.
+    """
+    o, d, time = generate_rays(cam, rows, cols, pixel_ids, sample_ids, seed)
+    b = pixel_ids.shape[0]
+    dev = o.device
+    p_light, p_bsdf = _mis_probs(has_lights)
+    T = torch.ones((b, 3), dtype=REAL, device=dev)
+    L = torch.zeros((b, 3), dtype=REAL, device=dev)
+    alive = torch.ones(b, dtype=torch.bool, device=dev)
+    rays = torch.zeros((), dtype=torch.int64, device=dev)
+    bounce = 0
+    while bounce < max_depth and bool(alive.any()):
+        rays = rays + alive.sum()
+        o_next, d_next, T, L, alive = bounce_step(
+            sd, o, d, time, T, L, alive, bounce, pixel_ids, sample_ids, seed,
+            p_light, p_bsdf, has_lights,
+        )
+        o = torch.where(alive[..., None], o_next, o)
+        d = torch.where(alive[..., None], d_next, d)
+        bounce += 1
+    return L, int(rays)
+
+
+def compaction_thresholds(b: int) -> list[int]:
+    """Lane counts at which the streamed wavefront compacts its live lanes.
+
+    Inherited default of the reference package's non-cluster schedule (b/2, b/8,
+    b/32, each kept only at 4096 lanes or more, then 0); not yet re-derived for
+    this card.
+    """
+    return [t for t in (b // 2, b // 8, b // 32) if t >= 4096] + [0]
+
+
+def trace_film_streamed(
+    sd, cam, pixel_ids, rows, cols, sample0, spp_limit, seed, k, max_depth, has_lights
+):
+    """Path-regeneration wavefront: each lane streams up to k samples of its pixel.
+
+    Per sample identical to trace_radiance (same counter-based RNG stream per
+    (pixel, sample) path); only the schedule differs:
+
+    - *regeneration*: a lane that finishes sample s immediately starts sample s+1;
+    - *tail compaction*: once the lanes with work left drop to a threshold
+      (compaction_thresholds), the state is stably sorted work-first and cut to
+      that many lanes. Each lane carries its origin index so films scatter back
+      exactly (lane ids are unique, so index_add_ is deterministic).
+
+    sample0 is a per-lane tensor. Returns (film_sum [B,3] in the caller's lane
+    order, rays_traced int, wavefront iterations int).
+    """
+    b = pixel_ids.shape[0]
+    dev = pixel_ids.device
+    i32 = dict(dtype=torch.int32, device=dev)
+    f32 = dict(dtype=REAL, device=dev)
+    d0 = torch.zeros((b, 3), **f32)
+    d0[:, 2] = 1.0
+    s = dict(
+        pix=pixel_ids,
+        row=rows,
+        col=cols,
+        sample0=sample0,
+        lane=torch.arange(b, **i32),
+        o=torch.zeros((b, 3), **f32),
+        d=d0,
+        time=torch.zeros(b, **f32),
+        bounce=torch.zeros(b, **i32),
+        sample=torch.zeros(b, **i32),  # per-lane sample cursor (samples started)
+        cur_sample=torch.zeros(b, **i32),  # sample id of the in-flight path
+        throughput=torch.ones((b, 3), **f32),
+        radiance=torch.zeros((b, 3), **f32),
+        film=torch.zeros((b, 3), **f32),
+        alive=torch.zeros(b, dtype=torch.bool, device=dev),
+    )
+    rays = torch.zeros((), dtype=torch.int64, device=dev)
+    p_light, p_bsdf = _mis_probs(has_lights)
+
+    def work_mask(s):
+        return s["alive"] | ((s["sample"] < k) & ((s["sample0"] + s["sample"]) < spp_limit))
+
+    bank = torch.zeros((b, 3), **f32)
+    iterations = 0
+    for thr in compaction_thresholds(b):
+        while True:
+            n_work = int(work_mask(s).sum())  # the one host sync of the iteration
+            if n_work == 0 or n_work <= thr:
+                break
+            s, n_rays = _stream_step(
+                s, sd, cam, spp_limit, seed, k, max_depth, has_lights, p_light, p_bsdf
+            )
+            rays = rays + n_rays
+            iterations += 1
+        if thr:
+            keep = torch.argsort((~work_mask(s)).to(torch.int8), stable=True)[:thr]
+            bank.index_add_(0, s["lane"], s["film"])
+            s = {key: val.index_select(0, keep) for key, val in s.items()}
+            s["film"] = torch.zeros((thr, 3), **f32)
+    bank.index_add_(0, s["lane"], s["film"])
+    return bank, int(rays), iterations
+
+
+def _stream_step(s, sd, cam, spp_limit, seed, k, max_depth, has_lights, p_light, p_bsdf):
+    """One wavefront iteration: regenerate exhausted lanes, bounce, flush films."""
+    o, d, time = s["o"], s["d"], s["time"]
+    T, L, film, alive = s["throughput"], s["radiance"], s["film"], s["alive"]
+    bounce, sample, cur_sample = s["bounce"], s["sample"], s["cur_sample"]
+    sample0 = s["sample0"]
+
+    # ---- regenerate lanes whose path is finished and have samples left ----
+    need = (~alive) & (sample < k) & ((sample0 + sample) < spp_limit)
+    new_sample = sample0 + sample
+    o_new, d_new, t_new = generate_rays(cam, s["row"], s["col"], s["pix"], new_sample, seed)
+    nm = need[..., None]
+    o = torch.where(nm, o_new, o)
+    d = torch.where(nm, d_new, d)
+    time = torch.where(need, t_new, time)
+    T = torch.where(nm, 1.0, T)
+    L = torch.where(nm, 0.0, L)
+    bounce = torch.where(need, 0, bounce)
+    cur_sample = torch.where(need, new_sample, cur_sample)
+    sample = sample + need.to(torch.int32)
+    alive = alive | need
+    n_rays = alive.sum()
+
+    # ---- one bounce (identical estimator to trace_radiance) ----
+    o_next, d_next, T, L, alive_h = bounce_step(
+        sd, o, d, time, T, L, alive, bounce, s["pix"], cur_sample, seed,
+        p_light, p_bsdf, has_lights,
+    )
+    bounce = bounce + 1
+    # max_depth exit: the reference loop just stops after max_depth iterations
+    alive_h = alive_h & (bounce < max_depth)
+
+    # ---- flush finished paths into the per-lane film ----
+    died = alive & ~alive_h
+    film = film + torch.where(died[..., None], L, 0.0)
+
+    out = dict(
+        s,
+        o=torch.where(alive_h[..., None], o_next, o),
+        d=torch.where(alive_h[..., None], d_next, d),
+        time=time,
+        bounce=bounce,
+        sample=sample,
+        cur_sample=cur_sample,
+        throughput=T,
+        radiance=L,
+        film=film,
+        alive=alive_h,
+    )
+    return out, n_rays

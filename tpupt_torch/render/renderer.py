@@ -1,0 +1,241 @@
+"""Host-side render driver: chunks the (pixel, sample) space into launches.
+
+Counterpart of ``tpupt/render/renderer.py``. The (pixel, sample) space is flattened
+into lanes of fixed-size launches; each launch runs the path-regeneration wavefront
+(integrator.trace_film_streamed) and its film is accumulated on the host in float64.
+Runs on one device (the compiled scene's); multi-GPU waits for its port (ROADMAP).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+import time as _time
+
+import numpy as np
+import torch
+
+from ..core.dtypes import NP_REAL
+from ..scene.compile import CompiledScene
+from .camera import Camera
+from .film import tonemap_quantize
+from .integrator import trace_film_streamed
+
+
+@dataclasses.dataclass
+class RenderStats:
+    wall_s: float = 0.0
+    paths: int = 0
+    rays: int = 0  # scene intersections of live lanes (every bounce counts)
+    launches: int = 0
+    iterations: int = 0  # wavefront iterations; each costs one host sync
+
+    @property
+    def paths_per_s(self) -> float:
+        return self.paths / self.wall_s if self.wall_s > 0 else 0.0
+
+    @property
+    def rays_per_s(self) -> float:
+        return self.rays / self.wall_s if self.wall_s > 0 else 0.0
+
+
+class TransientLaunchError(RuntimeError):
+    """A launch failure worth one retry (raised by the fault hook in tests).
+
+    Only this type is retried: a kernel build or launch error is a RuntimeError
+    of another type and propagates at once.
+    """
+
+
+# Fault-injection hook (tests only): called as _fault_hook(launch_index) before
+# every launch attempt; raising TransientLaunchError from it simulates a
+# transient launch failure.
+_fault_hook = None
+
+
+def _morton_pixel_order(w: int, h: int) -> np.ndarray:
+    """Pixel ids in Z-order (Morton) instead of scanline order.
+
+    Neighbouring lanes then hold neighbouring pixels (16x8 tiles per 128 lanes),
+    whose rays stay coherent for longer. The film scatter is by explicit pixel id
+    and per-pixel radiance is RNG-counter deterministic, so the image does not
+    depend on the order.
+    """
+
+    def part1by1(x):
+        x = x.astype(np.uint64)
+        x = (x | (x << np.uint64(16))) & np.uint64(0x0000FFFF0000FFFF)
+        x = (x | (x << np.uint64(8))) & np.uint64(0x00FF00FF00FF00FF)
+        x = (x | (x << np.uint64(4))) & np.uint64(0x0F0F0F0F0F0F0F0F)
+        x = (x | (x << np.uint64(2))) & np.uint64(0x3333333333333333)
+        x = (x | (x << np.uint64(1))) & np.uint64(0x5555555555555555)
+        return x
+
+    cols = np.tile(np.arange(w, dtype=np.int64), h)
+    rows = np.repeat(np.arange(h, dtype=np.int64), w)
+    code = part1by1(cols) | (part1by1(rows) << np.uint64(1))
+    return np.argsort(code, kind="stable").astype(np.int32)
+
+
+def _chunk_film(sd, cam, pixel_ids, n_valid, sample0, spp_limit, seed, *, k, r, max_depth,
+                has_lights, width):
+    """Film sums of up to r*k samples per pixel in `pixel_ids` -> ([pb,3], rays, iterations).
+
+    r lanes per pixel, each streaming its own k-sample slice (replica j takes
+    samples [sample0 + j*k, ...)). Lanes past n_valid (padding of the final pixel
+    block) start at spp_limit, so they never start a path.
+    """
+    pb = pixel_ids.shape[0]
+    dev = pixel_ids.device
+    pix = pixel_ids.repeat(r)
+    rows = pix // width
+    cols = pix % width
+    lane_sample0 = sample0 + torch.repeat_interleave(
+        torch.arange(r, dtype=torch.int32, device=dev) * k, pb
+    )
+    lane_valid = (torch.arange(pb, dtype=torch.int32, device=dev) < n_valid).repeat(r)
+    lane_sample0 = torch.where(lane_valid, lane_sample0, spp_limit).to(torch.int32)
+    film, rays, iters = trace_film_streamed(
+        sd, cam, pix, rows, cols, lane_sample0, spp_limit, seed, k, max_depth, has_lights
+    )
+    return film.reshape(r, pb, 3).sum(dim=0), rays, iters
+
+
+def render_image(
+    compiled: CompiledScene,
+    camera: Camera,
+    seed: int = 0,
+    rays_per_launch: int = 1 << 20,
+    samples_per_launch: int = 128,
+    progress: bool = True,
+    checkpoint_path: str | None = None,
+    on_launch=None,
+    debug_checks: bool = False,
+    mesh=None,
+):
+    """Render -> (uint8 image [H,W,3], float32 mean radiance [H,W,3], RenderStats).
+
+    Runs on the device the scene was compiled for (``Scene.compile(device=...)``).
+
+    rays_per_launch bounds the lane count (pixel block size) of a launch;
+    samples_per_launch bounds how many samples each lane streams per launch.
+
+    checkpoint_path: persist (film accumulator, launch cursor, stats) after every
+    launch and resume from it when the file exists. Resuming is exact: the
+    counter-based RNG makes a resumed render bit-identical to an uninterrupted
+    one. The config fingerprint is verified on load; a mismatch raises.
+
+    on_launch(mean_so_far [H,W,3] f32, samples_done_fraction) is called after
+    every launch.
+
+    debug_checks: validate every launch's film for NaN/Inf and raise with the
+    launch coordinates.
+
+    mesh: multi-device rendering is not ported yet; passing one raises.
+    """
+    if mesh is not None:
+        raise NotImplementedError("render_image(mesh=...): multi-GPU is not ported yet (ROADMAP)")
+    sd = compiled.data
+    dev = sd.device
+    cam = camera.init(dev)
+    w, h = camera.image_width, camera.image_height
+    spp = camera.samples_per_pixel
+    npix = w * h
+
+    pb = min(npix, rays_per_launch)
+    # launch schedule, inherited from the reference package (not yet re-derived
+    # for this card): replicate pixels across lanes only while the pixel block is
+    # below LANE_TARGET lanes, and keep each lane's sample slice k as long as
+    # samples_per_launch allows
+    LANE_TARGET = 1 << 18
+    if pb >= LANE_TARGET:
+        r = 1
+    else:
+        r = max(1, min(LANE_TARGET // pb + 1, rays_per_launch // pb, spp // 8))
+    k = min((spp + r - 1) // r, samples_per_launch)
+    spl = r * k  # samples per pixel per launch
+    n_pixel_blocks = (npix + pb - 1) // pb
+    n_sample_chunks = (spp + spl - 1) // spl
+    total_launches = n_pixel_blocks * n_sample_chunks
+
+    # the reference's fingerprint layout (n_dev = 1, Morton pixel order = 1)
+    fingerprint = np.array([w, h, spp, seed, pb, k, r, camera.max_depth, 1, 1], dtype=np.int64)
+    film = np.zeros((npix, 3), dtype=np.float64)
+    stats = RenderStats()
+    start_it = 0
+    if checkpoint_path is not None and os.path.exists(checkpoint_path):
+        ck = np.load(checkpoint_path)
+        if not np.array_equal(ck["fingerprint"], fingerprint):
+            raise ValueError(
+                f"checkpoint {checkpoint_path} was written for a different render "
+                f"config ({ck['fingerprint']} vs {fingerprint})"
+            )
+        film = ck["film"]
+        start_it = int(ck["next_it"])
+        stats.launches = start_it
+        stats.paths = int(ck["paths"])
+        stats.rays = int(ck["rays"])
+        if progress:
+            print(f"  resuming at launch {start_it}/{total_launches}", flush=True)
+
+    t0 = _time.perf_counter()
+    order = _morton_pixel_order(w, h)
+    for it in range(start_it, total_launches):
+        pblk, schunk = divmod(it, n_sample_chunks)
+        lo = pblk * pb
+        ids = order[lo : min(lo + pb, npix)]
+        n_valid = len(ids)
+        if n_valid < pb:  # pad the final block (padded lanes never start a path)
+            ids = np.concatenate([ids, np.zeros(pb - n_valid, np.int32)])
+        for attempt in (0, 1):  # one launch-level retry on a transient failure
+            try:
+                if _fault_hook is not None:
+                    _fault_hook(it)
+                out, rays, iters = _chunk_film(
+                    sd, cam, torch.from_numpy(ids).to(dev), n_valid, schunk * spl, spp, seed,
+                    k=k, r=r, max_depth=camera.max_depth, has_lights=compiled.has_lights, width=w,
+                )
+                out = out.cpu().numpy()
+                break
+            except TransientLaunchError:
+                if attempt == 1:
+                    raise
+                if progress:
+                    print(f"  launch {it} failed transiently; retrying", flush=True)
+        if debug_checks:
+            bad = ~np.isfinite(out[:n_valid])
+            if bad.any():
+                lanes = np.nonzero(bad.any(axis=-1))[0]
+                raise FloatingPointError(
+                    f"non-finite film at launch {it} (pixel block {pblk}, sample "
+                    f"chunk {schunk}): {len(lanes)} pixels, first ids "
+                    f"{ids[lanes[:8]].tolist()}"
+                )
+        film[ids[:n_valid]] += out[:n_valid].astype(np.float64)
+        stats.launches += 1
+        stats.paths += n_valid * min(spl, spp - schunk * spl)
+        stats.rays += rays
+        stats.iterations += iters
+        if checkpoint_path is not None:
+            tmp = checkpoint_path + ".tmp.npz"
+            np.savez(
+                tmp,
+                film=film,
+                next_it=np.int64(it + 1),
+                paths=np.int64(stats.paths),
+                rays=np.int64(stats.rays),
+                fingerprint=fingerprint,
+            )
+            os.replace(tmp, checkpoint_path)  # atomic: partial writes never land
+        if on_launch is not None:
+            done_spp = min((schunk + 1) * spl, spp)
+            on_launch(
+                (film / max(done_spp, 1)).reshape(h, w, 3).astype(np.float32),
+                (it + 1) / total_launches,
+            )
+        if progress and schunk == n_sample_chunks - 1:
+            print(f"  pixel block {pblk + 1}/{n_pixel_blocks} done", flush=True)
+
+    stats.wall_s = _time.perf_counter() - t0
+    mean = (film / spp).reshape(h, w, 3)
+    return tonemap_quantize(mean), mean.astype(NP_REAL), stats

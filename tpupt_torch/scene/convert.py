@@ -1,0 +1,54 @@
+"""Numpy -> SceneData bridge.
+
+Builds the port's SceneData from a compiled scene given as numpy arrays and static
+facts — the port's own compiler output, or the reference package's SceneData
+fields converted with ``np.asarray``. Feeding both packages one compiled scene
+separates "the renderers agree" from "the compilers agree".
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..core.device import resolve_device
+from . import data as D
+
+# static flags of the reference's SceneData that select paths the port has not
+# ported yet; a scene that sets any of them cannot be rendered here
+_UNPORTED_FLAGS = (
+    "env_is_hdr",
+    "has_tri_bvh",
+    "has_tri_mxu",
+    "has_tri_clusters",
+    "has_tri_clusters_hbm",
+)
+
+_FLOAT_DTYPES = (np.float16, np.float32, np.float64)
+
+
+def _to_tensor(a, device):
+    a = np.asarray(a)
+    if a.dtype in _FLOAT_DTYPES:
+        a = a.astype(np.float32)
+    elif a.dtype != np.bool_:
+        a = a.astype(np.int32)
+    return torch.from_numpy(np.array(a, order="C")).to(device)  # a writable copy, 0-d kept
+
+
+def scene_data_from_numpy(fields: dict, static: dict, device=None) -> D.SceneData:
+    """fields: numpy arrays by SceneData field name (extra names are ignored);
+    static: the static facts by name (extra names are ignored, but a set flag of
+    an unported path raises NotImplementedError)."""
+    for flag in _UNPORTED_FLAGS:
+        if static.get(flag):
+            raise NotImplementedError(f"{flag}: this path is not ported yet (ROADMAP)")
+    dev = resolve_device(device)
+    missing = [n for n in D.tensor_fields() if n not in fields]
+    if missing:
+        raise KeyError(f"scene fields missing: {missing}")
+    tensors = {n: _to_tensor(fields[n], dev) for n in D.tensor_fields()}
+    facts = {n: static[n] for n in D.STATIC_FIELDS if n in static}
+    if "mat_types" in facts:
+        facts["mat_types"] = tuple(int(t) for t in facts["mat_types"])
+    return D.SceneData(**tensors, **facts)
