@@ -1,10 +1,21 @@
 """Smoke test of the PyTorch/CUDA port on one GPU: builds the kernels, holds each
-against its plain PyTorch version, drives the main path (the Cornell-box forward
-render at 600x600, max_depth 50) and prints the numbers PERF.md quotes.
+against its plain PyTorch version, drives the main path through three scenes and
+prints the numbers PERF.md quotes.
 
-    python3 chip_smoke.py                 # default: one card, 32 spp
-    python3 chip_smoke.py --spp 64        # longer render
+    python3 chip_smoke.py                 # default: one card
     python3 chip_smoke.py --profile DIR   # add a torch.profiler pass, tables in DIR
+
+The main path is the forward render (render_image) of:
+- the Cornell box, 600x600, max_depth 50: spheres and quads through K1;
+- scene 6 (everything_scene), 600 px wide, max_depth 50: 16.6k triangles through
+  the flat cluster kernel (K2), spheres and quads through K1;
+- "bigmesh", a 318k-triangle mesh (a 4968-triangle mesh subdivided 3 times),
+  600x600, max_depth 50: the two-level cluster kernel (K3).
+The repository ships no asset files, so the script writes stand-ins for scene 6's
+meshes (bunny.obj, spot.obj, cow.obj: lumpy spheres of the real meshes' triangle
+counts) and its environment map (grace_probe_latlong.hdr: a synthetic sky) to a
+temporary directory, points TPUPT_ASSETS at it, and builds the scenes through the
+port's own everything_scene, OBJ parser and .hdr reader.
 
 Exits non-zero, printing no result, without a CUDA device or outside a checkout
 of the repository. The last line of standard output is
@@ -16,8 +27,11 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -32,6 +46,13 @@ PEAK_F32_FLOPS = 67e12
 K1_FLOPS_SPHERE = 28
 K1_FLOPS_QUAD = 49
 K1_RAY_BYTES = 7 * 4 + 3 * 4  # o, d, time in; t, kind, idx out
+# K2/K3's float operations per box test and per triangle test, counted from
+# csrc/tri_kernel.cu the same way
+TRI_FLOPS_BOX = 24
+TRI_FLOPS_TRI = 46
+TRI_RAY_BYTES = 7 * 4 + 8 * 4  # o, d, t_in in; t, id, ns xyz, u, v, mat out
+
+SPP = {"cornell": 32, "scene6": 32, "bigmesh": 25}  # bigmesh: bench.py's min(BENCH_SPP, 25)
 
 
 def log(msg=""):
@@ -48,7 +69,7 @@ def card_line() -> str:
 
 def cuda_ms(fn, reps=20, rounds=7):
     """Median over `rounds` of the mean time of `reps` calls, by CUDA events (after warm-up)."""
-    for _ in range(3):
+    for _ in range(2):
         fn()
     torch.cuda.synchronize()
     times = []
@@ -82,6 +103,109 @@ def camera_rays(camera, dev, seed=0):
     return o.contiguous(), d.contiguous(), t.contiguous()
 
 
+def bound(flops, nbytes):
+    """(least time in ms, what bounds it) for `flops` f32 operations moving `nbytes`."""
+    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES_PER_S
+    return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+# ---------------------------------------------------------------------------
+# stand-in assets
+# ---------------------------------------------------------------------------
+
+
+def _write_blob_obj(path, nu, nv, center, radius, seed, uvs):
+    """A lumpy UV sphere of 2*nu*nv triangles with vertex normals (and UVs) as OBJ text."""
+    rng = np.random.default_rng(seed)
+    k = rng.integers(2, 6, size=4)
+    th, ph = np.meshgrid(np.linspace(0, np.pi, nv + 1), np.linspace(0, 2 * np.pi, nu + 1), indexing="ij")
+    r = radius * (1.0 + 0.15 * np.sin(k[0] * th) * np.cos(k[1] * ph) + 0.08 * np.cos(k[2] * th + k[3] * ph))
+    n = np.stack([np.sin(th) * np.cos(ph), np.cos(th), np.sin(th) * np.sin(ph)], -1).reshape(-1, 3)
+    pos = np.asarray(center) + r.reshape(-1, 1) * n
+    i = np.arange(nv)[:, None] * (nu + 1) + np.arange(nu)[None, :] + 1  # OBJ indices are 1-based
+    faces = np.stack([i, i + nu + 1, i + 1, i + 1, i + nu + 1, i + nu + 2], -1).reshape(-1, 3)
+    lines = [f"v {x:.6f} {y:.6f} {z:.6f}" for x, y, z in pos]
+    lines += [f"vn {x:.6f} {y:.6f} {z:.6f}" for x, y, z in n]
+    if uvs:
+        lines += [f"vt {u:.6f} {v:.6f}" for u, v in zip(ph.ravel() / (2 * np.pi), 1 - th.ravel() / np.pi)]
+        lines += ["f " + " ".join(f"{a}/{a}/{a}" for a in f) for f in faces]
+    else:
+        lines += ["f " + " ".join(f"{a}//{a}" for a in f) for f in faces]
+    with open(path, "w") as f:
+        f.write("\n".join(lines) + "\n")
+    return len(faces)
+
+
+def _write_hdr(path, w=128, h=64):
+    """A synthetic latlong sky (gradient + sun) as a Radiance file, RLE and flat rows mixed."""
+    v, u = np.meshgrid((np.arange(h) + 0.5) / h, (np.arange(w) + 0.5) / w, indexing="ij")
+    sky = np.stack([0.4 + 0.5 * (1 - v), 0.5 + 0.4 * (1 - v), 0.9 + 0.1 * (1 - v)], -1)
+    sun = 30.0 * np.exp(-((u - 0.3) ** 2 + (v - 0.25) ** 2) / 0.002)
+    img = (sky * (v < 0.5)[..., None] + 0.3 * (v >= 0.5)[..., None] + sun[..., None]).astype(np.float32)
+    m = img.max(-1)
+    f, e = np.frexp(m)
+    scale = np.where(m > 1e-32, f * 256.0 / np.maximum(m, 1e-32), 0.0)
+    rgbe = np.zeros((h, w, 4), np.uint8)
+    rgbe[..., :3] = np.clip(img * scale[..., None], 0, 255).astype(np.uint8)
+    rgbe[..., 3] = np.where(m > 1e-32, e + 128, 0).astype(np.uint8)
+    out = bytearray(b"#?RADIANCE\nFORMAT=32-bit_rle_rgbe\n\n" + f"-Y {h} +X {w}\n".encode())
+    for y in range(h):
+        if y % 2:
+            out += rgbe[y].tobytes()
+            continue
+        out += bytes([2, 2, w >> 8, w & 255])
+        for c in range(4):
+            plane, x = rgbe[y, :, c], 0
+            while x < w:
+                run = 1
+                while x + run < w and run < 127 and plane[x + run] == plane[x]:
+                    run += 1
+                if run >= 3:
+                    out += bytes([128 + run, plane[x]])
+                    x += run
+                else:
+                    n = min(w - x, 16)
+                    out += bytes([n]) + plane[x : x + n].tobytes()
+                    x += n
+    with open(path, "wb") as f:
+        f.write(bytes(out))
+
+
+def write_stand_in_assets(root):
+    """Scene 6's asset files as stand-ins -> {file: triangles}."""
+    counts = {
+        # centred and sized like the real meshes in everything_scene's frame
+        "bunny.obj": _write_blob_obj(os.path.join(root, "bunny.obj"), 54, 46, (0.0, 0.07, 0.0), 0.07, 1, False),
+        "spot.obj": _write_blob_obj(os.path.join(root, "spot.obj"), 58, 50, (0.0, 0.0, 0.0), 1.0, 2, True),
+        "cow.obj": _write_blob_obj(os.path.join(root, "cow.obj"), 58, 50, (0.0, 0.0, 0.0), 1.2, 3, True),
+    }
+    _write_hdr(os.path.join(root, "grace_probe_latlong.hdr"))
+    return counts
+
+
+def bigmesh_scene(width, spp):
+    """bench.py's bigmesh configuration on the port: bunny.obj subdivided 3 times."""
+    from tpupt_torch.io.obj import load_obj, subdivide_mesh
+    from tpupt_torch.render.camera import Camera
+    from tpupt_torch.scene.builder import Diffuse, Scene
+    from tpupt_torch.scenes import _asset
+
+    s = Scene()
+    s.add_mesh(subdivide_mesh(load_obj(_asset("bunny.obj")), 3), Diffuse((0.7, 0.7, 0.7)), scale=20.0)
+    s.environment = (1.0, 1.0, 1.0)
+    cam = Camera(
+        aspect_ratio=1.0, image_width=width, samples_per_pixel=spp,
+        max_depth=50, vfov=35.0, look_from=(0.0, 1.0, 6.0), look_at=(0.0, 1.0, 0.0),
+        blur_strength=0.5, focal_length=5.0, defocus_angle=0.0,
+    )
+    return s, cam
+
+
+# ---------------------------------------------------------------------------
+# kernel checks
+# ---------------------------------------------------------------------------
+
+
 def check_k1(hit_kernel, sph, quad, rays, label):
     """Kernel vs plain on the card -> (mismatching lanes, max |t| error on hits)."""
     o, d, tm = rays
@@ -97,6 +221,72 @@ def check_k1(hit_kernel, sph, quad, rays, label):
     return n_bad, err
 
 
+def tri_args(sd):
+    """(kernel, plain) callables of the scene's cluster route: f(o, d, t_in) -> (t, idx, aux)."""
+    from tpupt_torch.ops import tri_kernel as TK
+
+    if sd.has_tri_clusters:
+        tables = (sd.tri_cl, sd.tri_geo, sd.tri_attr)
+        return (lambda o, d, t: TK.closest_tri_flat(o, d, t, 1e-3, *tables),
+                lambda o, d, t, counts=None: TK.closest_tri_flat_plain(o, d, t, 1e-3, *tables, counts))
+    tables = (sd.tri_scl, sd.tri_cl, sd.tri_geo, sd.tri_attr, sd.tri_sc_size)
+    return (lambda o, d, t: TK.closest_tri_two_level(o, d, t, 1e-3, *tables),
+            lambda o, d, t, counts=None: TK.closest_tri_two_level_plain(o, d, t, 1e-3, *tables, counts))
+
+
+def check_tri(name, sd, rays, label):
+    """Cluster kernel vs plain on the card -> (mismatching lanes, max |t| error on hits)."""
+    kernel, plain = tri_args(sd)
+    o, d, t_in = rays
+    kt, ki, ka = kernel(o, d, t_in)
+    pt, pi, pa = plain(o, d, t_in)
+    torch.cuda.synchronize()
+    bad = (kt.view(torch.int32) != pt.view(torch.int32)) | (ki != pi) | (ka["mat"] != pa["mat"])
+    for k in ("ns_raw", "u", "v"):
+        diff = ka[k].view(torch.int32) != pa[k].view(torch.int32)
+        bad |= diff.any(dim=1) if diff.dim() == 2 else diff
+    n_bad = int(bad.sum())
+    hits = pt < 3e38
+    err = float((kt - pt).abs()[hits].max()) if bool(hits.any()) else 0.0
+    log(f"{name} vs plain [{label}]: {o.shape[0]} rays, {sd.tri_cl.shape[0]} clusters, hit share "
+        f"{float(hits.float().mean()):.4f}, mismatching lanes {n_bad}, max |dt| {err}")
+    return n_bad, err
+
+
+def tri_test_rays(sd, b, seed, dev):
+    """b random rays inside the meshes' bounds; seeds: 80% open, 10% short, 10% dead lanes."""
+    box = sd.tri_cl[sd.tri_cl[:, 0] < 1e29]
+    lo, hi = box[:, 0:3].min(0).values.cpu().numpy(), box[:, 3:6].max(0).values.cpu().numpy()
+    o, d, _ = random_rays(b, seed, lo, hi, dev)
+    rng = np.random.default_rng(seed + 1)
+    u = rng.uniform(size=b)
+    t_in = np.where(u < 0.8, 3e38, np.where(u < 0.9, rng.uniform(0, float((hi - lo).max()), b), 0.0))
+    return o, d, torch.from_numpy(t_in.astype(np.float32)).to(dev)
+
+
+def time_tri(name, sd, o, d, t_in):
+    """Kernel and plain times at the main path's lane count, and the bound from the plain counts."""
+    kernel, plain = tri_args(sd)
+    ms = cuda_ms(lambda: kernel(o, d, t_in))
+    plain_ms = cuda_ms(lambda: plain(o, d, t_in), reps=1, rounds=3)
+    counts = {}
+    plain(o, d, t_in, counts)
+    flops = counts["box_tests"] * TRI_FLOPS_BOX + counts["tri_tests"] * TRI_FLOPS_TRI
+    tables = sum(x.numel() * 4 for x in (sd.tri_cl, sd.tri_scl, sd.tri_geo, sd.tri_attr))
+    nbytes = o.shape[0] * TRI_RAY_BYTES + tables
+    bound_ms, bound_by = bound(flops, nbytes)
+    log(f"{name} at B={o.shape[0]}, {sd.tri_cl.shape[0]} clusters: kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: {counts['box_tests']} box tests, "
+        f"{counts['tri_tests']} triangle tests, {flops:.3e} flop, {nbytes:.3e} B); "
+        f"no single PyTorch call computes it")
+    return ms, plain_ms, bound_ms, bound_by
+
+
+# ---------------------------------------------------------------------------
+# renders
+# ---------------------------------------------------------------------------
+
+
 def image_stats(mean):
     """(finite share, mean radiance over finite pixels, its standard error)."""
     px = mean.reshape(-1, 3)
@@ -105,9 +295,80 @@ def image_stats(mean):
     return float(fin.mean()), float(vals.mean()), float(vals.std() / math.sqrt(max(len(vals), 1)))
 
 
+def render(label, compiled, cam, counters, kernel_ms):
+    """One render_image run with the kernel counts zeroed first -> (mean, stats, launches)."""
+    from tpupt_torch.ops import hit_kernel, tri_kernel
+    from tpupt_torch.render.renderer import render_image
+
+    hit_kernel.launches = 0
+    tri_kernel.launches.update(flat=0, two_level=0)
+    torch.cuda.synchronize()
+    _, mean, st = render_image(compiled, cam, seed=0, progress=False)
+    torch.cuda.synchronize()
+    launches = {"K1": hit_kernel.launches, "K2": tri_kernel.launches["flat"],
+                "K3": tri_kernel.launches["two_level"]}
+    fin, mu, _ = image_stats(mean)
+    shares = ", ".join(
+        f"{k} {launches[k]} launches (<= {100 * launches[k] * kernel_ms[k] / 1e3 / st.wall_s:.2f}% of wall)"
+        for k in counters
+    )
+    log(f"render {label} {cam.image_width}x{cam.image_height} {cam.samples_per_pixel} spp max_depth "
+        f"{cam.max_depth} on cuda: {st.wall_s:.3f} s, {st.paths} paths, {st.paths_per_s:.4e} paths/s, "
+        f"{st.rays} rays, {st.rays_per_s:.4e} rays/s, {st.launches} launches, {st.iterations} wavefront "
+        f"iterations ({1e3 * st.wall_s / max(st.iterations, 1):.3f} ms each); {shares}; finite share "
+        f"{fin:.6f}, mean radiance {mu:.6f}")
+    for k in counters:
+        if launches[k] == 0:
+            raise SystemExit(f"chip_smoke: the {label} render never launched {k}")
+    if mean.shape != (cam.image_height, cam.image_width, 3) or fin < 0.99 or not mu > 0.0:
+        raise SystemExit(f"chip_smoke: the {label} film is wrong: shape {mean.shape}, finite share "
+                         f"{fin}, mean {mu}")
+    return mean, st, launches
+
+
+def compare_small(label, build, dev, tol_mean=0.01):
+    """A 32 px / 4 spp render on cuda against the same render on the cpu: at least 95% of
+    pixels within rtol 1e-3 / atol 1e-4 and image means within tol_mean."""
+    from tpupt_torch.render.renderer import render_image
+
+    scene, cam = build(32, 4)
+    _, m_cpu, _ = render_image(scene.compile(device="cpu"), cam, seed=0, progress=False)
+    _, m_gpu, _ = render_image(scene.compile(device=dev), cam, seed=0, progress=False)
+    close = float(np.isclose(m_gpu, m_cpu, rtol=1e-3, atol=1e-4, equal_nan=True).all(-1).mean())
+    _, mean_g, _ = image_stats(m_gpu)
+    _, mean_c, se_c = image_stats(m_cpu)
+    log(f"{label} 32 px / 4 spp, cuda vs cpu: {close:.4f} of pixels within rtol 1e-3 / atol 1e-4, "
+        f"means {mean_g:.6f} vs {mean_c:.6f}")
+    if close < 0.95 or abs(mean_g - mean_c) > tol_mean * abs(mean_c):
+        raise SystemExit(f"chip_smoke: the small {label} cuda render disagrees with the cpu render")
+    return m_cpu, se_c
+
+
+def small_mesh_scene(width, spp):
+    """A 5000-triangle wavy height field under a quad light (the cluster route at small size)."""
+    from tpupt_torch.render.camera import Camera
+    from tpupt_torch.scene.builder import Diffuse, Light, Scene
+
+    n = 50
+    x, z = np.meshgrid(np.linspace(-2, 2, n + 1), np.linspace(-2, 2, n + 1))
+    pos = np.stack([x, 0.3 * np.sin(3 * x) * np.cos(2 * z), z], axis=-1).reshape(-1, 3)
+    i = np.arange(n)[:, None] * (n + 1) + np.arange(n)[None, :]
+    faces = np.stack([i, i + 1, i + n + 2, i, i + n + 2, i + n + 1], axis=-1).reshape(-1, 3)
+    s = Scene()
+    s.add_mesh(dict(positions=pos, normals=None, uvs=None, indices=faces), Diffuse((0.6, 0.5, 0.4)))
+    s.add_quad((-1.0, 2.5, -1.0), (2.0, 0.0, 0.0), (0.0, 0.0, 2.0), Light((6.0, 6.0, 6.0)), light=True)
+    s.environment = (0.1, 0.1, 0.2)
+    cam = Camera(aspect_ratio=1.0, image_width=width, samples_per_pixel=spp, max_depth=6, vfov=50.0,
+                 look_from=(0.0, 2.0, 4.0), look_at=(0.0, 0.0, 0.0), blur_strength=0.5,
+                 focal_length=4.0, defocus_angle=0.0)
+    return s, cam
+
+
+# ---------------------------------------------------------------------------
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--spp", type=int, default=32, help="samples per pixel of the 600 px render")
     ap.add_argument("--profile", type=str, default=None, metavar="DIR")
     args = ap.parse_args(argv)
 
@@ -115,10 +376,10 @@ def main(argv=None) -> int:
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
     try:
-        from tpupt_torch import build
+        from tpupt_torch import build, native
         from tpupt_torch.ops import hit_kernel
         from tpupt_torch.render.renderer import render_image
-        from tpupt_torch.scenes import balls_scene, cornell_box_scene
+        from tpupt_torch.scenes import balls_scene, cornell_box_scene, everything_scene
     except ImportError as e:
         print(f"chip_smoke: run from a checkout of the repository ({e})", file=sys.stderr)
         return 1
@@ -127,102 +388,30 @@ def main(argv=None) -> int:
     card = card_line()
     log(f"card: {card}")
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, python {sys.version.split()[0]}")
+    t_start = time.perf_counter()
 
-    # ---- build every kernel of the port, one nvcc per source, all at once ----
+    # ---- build every library of the port, one compiler per source, all at once ----
     t0 = time.perf_counter()
-    reports = build.build_all(["hit_kernel"])
-    log(f"kernel build: {time.perf_counter() - t0:.2f} s")
+    reports = build.build_all(["hit_kernel", "tri_kernel", "native_host"])
+    log(f"build (nvcc x2, g++ x1, in parallel): {time.perf_counter() - t0:.2f} s")
     for name, rep in reports.items():
         for line in rep.splitlines():
-            if "registers" in line or "smem" in line:
+            if any(w in line for w in ("registers", "smem", "spill")):
                 log(f"  {name}: {line.strip()}")
+    log(f"host builder (OBJ parse, SAH build): {native.builder()}")
 
-    # ---- K1 against its plain version on the card ----
-    cscene, ccam = cornell_box_scene(600, args.spp)
-    csd = cscene.compile(device=dev).data
-    c_sph, c_quad = hit_kernel.tables(csd)
-    bscene, bcam = balls_scene(600, args.spp)
-    bsd = bscene.compile(device=dev).data
-    b_sph, b_quad = hit_kernel.tables(bsd)
-    mismatches, max_err = 0, 0.0
-    for label, sph, quad, rays in (
-        ("cornell, random", c_sph, c_quad, random_rays(1 << 20, 1, 0.0, 555.0, dev)),
-        ("cornell, camera", c_sph, c_quad, camera_rays(ccam, dev)),
-        ("balls, random", b_sph, b_quad, random_rays(1 << 20, 2, -12.0, 12.0, dev)),
-        ("balls, camera", b_sph, b_quad, camera_rays(bcam, dev)),
-    ):
-        n_bad, err = check_k1(hit_kernel, sph, quad, rays, label)
-        mismatches += n_bad
-        max_err = max(max_err, err)
-    if mismatches:
-        raise SystemExit(f"chip_smoke: K1 disagrees with its plain version on {mismatches} lanes")
+    asset_dir = tempfile.mkdtemp(prefix="tpupt_assets_")
+    try:
+        os.environ["TPUPT_ASSETS"] = asset_dir
+        tris = write_stand_in_assets(asset_dir)
+        log(f"stand-in assets (synthetic, not the reference's files) in TPUPT_ASSETS: "
+            f"{tris} triangles, grace_probe_latlong.hdr 128x64")
+        kernels = run(args, dev, hit_kernel, render_image, cornell_box_scene, balls_scene,
+                      everything_scene)
+    finally:
+        shutil.rmtree(asset_dir, ignore_errors=True)
 
-    # ---- K1 timing at the main path's shapes (B = 600*600 Cornell lanes) ----
-    o, d, tm = camera_rays(ccam, dev)
-    b = o.shape[0]
-    k1_ms = cuda_ms(lambda: hit_kernel.closest_sphere_quad(o, d, tm, c_sph, c_quad))
-    plain_ms = cuda_ms(lambda: hit_kernel.closest_sphere_quad_plain(o, d, tm, c_sph, c_quad), reps=5)
-    flops = b * (c_sph.shape[1] * K1_FLOPS_SPHERE + c_quad.shape[1] * K1_FLOPS_QUAD)
-    nbytes = b * K1_RAY_BYTES + 4 * (c_sph.numel() + c_quad.numel())
-    bound_ms = 1e3 * max(nbytes / PEAK_BYTES_PER_S, flops / PEAK_F32_FLOPS)
-    bound_by = "operations" if flops / PEAK_F32_FLOPS >= nbytes / PEAK_BYTES_PER_S else "bytes"
-    log(f"K1 at B={b}, S={c_sph.shape[1]}, Q={c_quad.shape[1]}: kernel {k1_ms:.4f} ms, "
-        f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: {flops:.3e} flop, "
-        f"{nbytes:.3e} B); no single PyTorch call computes it")
-
-    # ---- the main path: Cornell 600x600, max_depth 50, through render_image ----
-    hit_kernel.launches = 0
-    torch.cuda.synchronize()
-    _, m_gpu, st = render_image(cscene.compile(device=dev), ccam, seed=0, progress=False)
-    torch.cuda.synchronize()
-    k1_launches = hit_kernel.launches
-    log(f"render cornell 600x600 {args.spp} spp max_depth {ccam.max_depth} on cuda: "
-        f"{st.wall_s:.3f} s, {st.paths} paths, {st.paths_per_s:.4e} paths/s, {st.rays} rays, "
-        f"{st.rays_per_s:.4e} rays/s, {st.launches} launches, {st.iterations} wavefront "
-        f"iterations ({1e3 * st.wall_s / max(st.iterations, 1):.3f} ms each), "
-        f"K1 launches {k1_launches} (~{100 * k1_launches * k1_ms / 1e3 / st.wall_s:.2f}% of wall)")
-    if k1_launches == 0:
-        raise SystemExit("chip_smoke: the render never launched K1")
-    if m_gpu.shape != (600, 600, 3):
-        raise SystemExit(f"chip_smoke: render shape {m_gpu.shape}")
-
-    # ---- the render against the port's CPU render ----
-    sscene, scam = cornell_box_scene(32, 4)
-    _, m_cpu, _ = render_image(sscene.compile(device="cpu"), scam, seed=0, progress=False)
-    _, m_small, _ = render_image(sscene.compile(device=dev), scam, seed=0, progress=False)
-    close = float(np.isclose(m_small, m_cpu, rtol=1e-3, atol=1e-4, equal_nan=True).all(-1).mean())
-    fin_g, mean_g, se_g = image_stats(m_gpu)
-    fin_c, mean_c, se_c = image_stats(m_cpu)
-    fin_s, mean_s, _ = image_stats(m_small)
-    tol = 5.0 * math.sqrt(se_g * se_g + se_c * se_c)
-    log(f"32 px / 4 spp, cuda vs cpu: {close:.4f} of pixels within rtol 1e-3 / atol 1e-4, "
-        f"means {mean_s:.6f} vs {mean_c:.6f}")
-    log(f"600 px cuda vs 32 px cpu: finite share {fin_g:.6f} vs {fin_c:.6f}, mean radiance "
-        f"{mean_g:.6f} vs {mean_c:.6f} (|diff| {abs(mean_g - mean_c):.6f}, 5-sigma tol {tol:.6f})")
-    if close < 0.95 or abs(mean_s - mean_c) > 0.01 * abs(mean_c):
-        raise SystemExit("chip_smoke: the small cuda render disagrees with the cpu render")
-    if fin_g < 0.99 or abs(fin_g - fin_c) > 0.01:
-        raise SystemExit("chip_smoke: finite share of the film differs from the cpu render")
-    if not (mean_g > 0.0) or abs(mean_g - mean_c) > tol:
-        raise SystemExit("chip_smoke: mean radiance differs from the cpu render")
-
-    if args.profile:
-        profile_render(args.profile, render_image, cornell_box_scene, dev)
-
-    kernels = [dict(
-        name="K1 closest_sphere_quad",
-        route="cuda",
-        source="tpupt_torch/csrc/hit_kernel.cu",
-        replaces="tpupt/ops/pallas_hit.py:35",
-        launches=k1_launches,
-        max_abs_err=max_err,
-        ms=k1_ms,
-        plain_ms=plain_ms,
-        bound_ms=bound_ms,
-        bound_by=bound_by,
-        library_ms=None,
-        status=f"ported, launches {k1_launches}, mismatches {mismatches}",
-    )]
+    log(f"total {time.perf_counter() - t_start:.1f} s")
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
@@ -230,15 +419,109 @@ def main(argv=None) -> int:
     return 0
 
 
-def profile_render(out_dir, render_image, cornell_box_scene, dev):
-    """torch.profiler over a 600 px / 2 spp render: kernel time by name, device busy share."""
-    import os
+def run(args, dev, hit_kernel, render_image, cornell_box_scene, balls_scene, everything_scene):
+    # ---- the three scenes (host set-up: OBJ parse, SAH build, packing) ----
+    t0 = time.perf_counter()
+    cscene, ccam = cornell_box_scene(600, SPP["cornell"])
+    c_compiled = cscene.compile(device=dev)
+    s6scene, s6cam = everything_scene(600, SPP["scene6"])
+    s6 = s6scene.compile(device=dev)
+    bscene, bcam = bigmesh_scene(600, SPP["bigmesh"])
+    big = bscene.compile(device=dev)
+    log(f"scene set-up {time.perf_counter() - t0:.2f} s: scene 6 stand-in {s6.data.n_tris} triangle "
+        f"rows, {s6.data.tri_cl.shape[0]} clusters, flat route {s6.data.has_tri_clusters}; bigmesh "
+        f"{big.data.n_tris} triangle rows, {big.data.tri_cl.shape[0]} clusters, two-level route "
+        f"{big.data.has_tri_clusters_hbm} (superclusters of {big.data.tri_sc_size})")
+    if not (s6.data.has_tri_clusters and big.data.has_tri_clusters_hbm):
+        raise SystemExit("chip_smoke: the mesh scenes did not route to the flat and two-level kernels")
 
+    # ---- every kernel against its plain version on the card ----
+    c_sph, c_quad = hit_kernel.tables(c_compiled.data)
+    bscene_balls, bcam_balls = balls_scene(600, 1)
+    b_sph, b_quad = hit_kernel.tables(bscene_balls.compile(device=dev).data)
+    bad = {"K1": 0, "K2": 0, "K3": 0}
+    err = {"K1": 0.0, "K2": 0.0, "K3": 0.0}
+    for label, sph, quad, rays in (
+        ("cornell, random", c_sph, c_quad, random_rays(1 << 20, 1, 0.0, 555.0, dev)),
+        ("cornell, camera", c_sph, c_quad, camera_rays(ccam, dev)),
+        ("balls, random", b_sph, b_quad, random_rays(1 << 20, 2, -12.0, 12.0, dev)),
+        ("balls, camera", b_sph, b_quad, camera_rays(bcam_balls, dev)),
+    ):
+        n, e = check_k1(hit_kernel, sph, quad, rays, label)
+        bad["K1"] += n
+        err["K1"] = max(err["K1"], e)
+    big_seed = lambda r: (r[0], r[1], torch.full_like(r[2], 3e38))  # noqa: E731
+    for name, sd, cam, seed in (("K2", s6.data, s6cam, 3), ("K3", big.data, bcam, 4)):
+        for label, rays in (
+            (f"{name} random", tri_test_rays(sd, 1 << 20, seed, dev)),
+            (f"{name} camera", big_seed(camera_rays(cam, dev))),
+        ):
+            n, e = check_tri(name, sd, rays, label)
+            bad[name] += n
+            err[name] = max(err[name], e)
+    if any(bad.values()):
+        raise SystemExit(f"chip_smoke: kernels disagree with their plain versions: {bad}")
+
+    # ---- timings at the main path's lane counts ----
+    o, d, tm = camera_rays(ccam, dev)
+    b = o.shape[0]
+    k1_ms = cuda_ms(lambda: hit_kernel.closest_sphere_quad(o, d, tm, c_sph, c_quad))
+    k1_plain = cuda_ms(lambda: hit_kernel.closest_sphere_quad_plain(o, d, tm, c_sph, c_quad), reps=5)
+    flops = b * (c_sph.shape[1] * K1_FLOPS_SPHERE + c_quad.shape[1] * K1_FLOPS_QUAD)
+    nbytes = b * K1_RAY_BYTES + 4 * (c_sph.numel() + c_quad.numel())
+    k1_bound, k1_by = bound(flops, nbytes)
+    log(f"K1 at B={b}, S={c_sph.shape[1]}, Q={c_quad.shape[1]}: kernel {k1_ms:.4f} ms, plain "
+        f"{k1_plain:.4f} ms, bound {k1_bound:.4f} ms ({k1_by}: {flops:.3e} flop, {nbytes:.3e} B); "
+        f"no single PyTorch call computes it")
+    timing = {"K1": (k1_ms, k1_plain, k1_bound, k1_by)}
+    timing["K2"] = time_tri("K2", s6.data, *big_seed(camera_rays(s6cam, dev)))
+    timing["K3"] = time_tri("K3", big.data, *big_seed(camera_rays(bcam, dev)))
+    kernel_ms = {k: v[0] for k, v in timing.items()}
+
+    # ---- the main path: three renders through render_image ----
+    m_cornell, _, cl = render("cornell", c_compiled, ccam, ["K1"], kernel_ms)
+    _, _, s6l = render("scene 6 stand-in", s6, s6cam, ["K1", "K2"], kernel_ms)
+    _, _, bl = render("bigmesh stand-in", big, bcam, ["K3"], kernel_ms)
+    launches = {"K1": cl["K1"], "K2": s6l["K2"], "K3": bl["K3"]}
+
+    # ---- small renders on the card against the same renders on the cpu ----
+    m_cpu, se_c = compare_small("cornell", cornell_box_scene, dev)
+    compare_small("mesh (5000 triangles, flat cluster route)", small_mesh_scene, dev)
+    fin_g, mean_g, se_g = image_stats(m_cornell)
+    fin_c, mean_c, _ = image_stats(m_cpu)
+    tol = 5.0 * math.sqrt(se_g * se_g + se_c * se_c)
+    log(f"cornell 600 px cuda vs 32 px cpu: finite share {fin_g:.6f} vs {fin_c:.6f}, mean radiance "
+        f"{mean_g:.6f} vs {mean_c:.6f} (|diff| {abs(mean_g - mean_c):.6f}, 5-sigma tol {tol:.6f})")
+    if abs(fin_g - fin_c) > 0.01 or abs(mean_g - mean_c) > tol:
+        raise SystemExit("chip_smoke: the cornell film differs from the cpu render")
+
+    if args.profile:
+        for label, build in (("cornell", cornell_box_scene), ("scene6", everything_scene),
+                             ("bigmesh", bigmesh_scene)):
+            scene, cam = build(600, 2)
+            profile_render(args.profile, label, render_image, scene.compile(device=dev), cam)
+
+    meta = {
+        "K1": ("K1 closest_sphere_quad", "tpupt_torch/csrc/hit_kernel.cu", "tpupt/ops/pallas_hit.py:35"),
+        "K2": ("K2 closest_tri_flat", "tpupt_torch/csrc/tri_kernel.cu", "tpupt/ops/pallas_tri.py:300"),
+        "K3": ("K3 closest_tri_two_level", "tpupt_torch/csrc/tri_kernel.cu", "tpupt/ops/pallas_tri.py:632"),
+    }
+    kernels = []
+    for k, (name, source, replaces) in meta.items():
+        ms, plain_ms, bound_ms, bound_by = timing[k]
+        kernels.append(dict(
+            name=name, route="cuda", source=source, replaces=replaces, launches=launches[k],
+            max_abs_err=err[k], ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+            library_ms=None, status=f"ported, launches {launches[k]}, mismatches {bad[k]}",
+        ))
+    return kernels
+
+
+def profile_render(out_dir, label, render_image, compiled, cam):
+    """torch.profiler over a 2 spp render: kernel time by name, device busy share."""
     from torch.profiler import ProfilerActivity, profile
 
     os.makedirs(out_dir, exist_ok=True)
-    scene, cam = cornell_box_scene(600, 2)
-    compiled = scene.compile(device=dev)
     render_image(compiled, cam, progress=False)  # warm-up
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -247,16 +530,24 @@ def profile_render(out_dir, render_image, cornell_box_scene, dev):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     events = prof.key_averages()
-    table = events.table(sort_by="cuda_time_total", row_limit=40)
-    with open(os.path.join(out_dir, "render_profile.txt"), "w") as f:
-        f.write(table)
+    path = os.path.join(out_dir, f"render_profile_{label}.txt")
+    with open(path, "w") as f:
+        f.write(events.table(sort_by="cuda_time_total", row_limit=40))
     # device-side entries only: an operator's own row repeats its kernels' time
     kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
     dev_us = sum(e.self_device_time_total for e in kernels)
     n_kernels = sum(e.count for e in kernels)
-    log(f"profile (600 px, 2 spp, under the profiler): wall {wall:.3f} s, {st.iterations} iterations, "
-        f"device kernel time {dev_us / 1e3:.3f} ms ({100 * dev_us / 1e6 / wall:.2f}% busy), "
-        f"{n_kernels} device kernels; table in {out_dir}/render_profile.txt")
+    ours = {name: sum(e.self_device_time_total for e in kernels if name in e.key)
+            for name in ("closest_sphere_quad_kernel", "closest_tri_flat_kernel",
+                         "closest_tri_two_level_kernel")}
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:5]
+    log(f"profile {label} {cam.image_width}x{cam.image_height} 2 spp (under the profiler): wall "
+        f"{wall:.3f} s, {st.iterations} iterations, device kernel time {dev_us / 1e3:.3f} ms "
+        f"({100 * dev_us / 1e6 / wall:.2f}% busy), {n_kernels} device kernels "
+        f"({n_kernels / max(st.iterations, 1):.0f} per iteration); hand-written kernels "
+        + ", ".join(f"{k} {v / 1e3:.3f} ms" for k, v in ours.items() if v)
+        + "; top: " + "; ".join(f"{e.key[:60]} {e.self_device_time_total / 1e3:.3f} ms" for e in top)
+        + f"; table in {path}")
 
 
 if __name__ == "__main__":

@@ -5,7 +5,7 @@ so it runs on a machine that has only PyTorch:
 
     python -m pytest tests/test_torch_cuda.py -q
 
-Tolerances: the kernel is bit-equal to its plain version (both round every
+Tolerances: each kernel is bit-equal to its plain version (both round every
 operation on its own); a small render on the card matches the same render on the
 CPU on at least 95% of pixels within rtol 1e-3 / atol 1e-4, with image means
 within 1% (the card's transcendentals differ from the CPU's by an ulp, which
@@ -16,8 +16,11 @@ import numpy as np
 import pytest
 import torch
 
-from tpupt_torch.ops import hit_kernel
+from tpupt_torch.ops import hit_kernel, tri_kernel
+from tpupt_torch.ops.bvh import build_tri_bvh_sah
+from tpupt_torch.render.camera import Camera
 from tpupt_torch.render.renderer import render_image
+from tpupt_torch.scene.builder import Diffuse, Light, Scene
 from tpupt_torch.scenes import balls_scene, cornell_box_scene
 
 
@@ -67,6 +70,97 @@ def test_small_render_matches_cpu(cuda):
     before = hit_kernel.launches
     _, m_gpu, stats = render_image(scene.compile(device=cuda), cam, progress=False)
     assert hit_kernel.launches - before == stats.iterations > 0
+    close = np.isclose(m_gpu, m_cpu, rtol=1e-3, atol=1e-4, equal_nan=True).all(-1).mean()
+    assert close >= 0.95
+    np.testing.assert_allclose(np.nanmean(m_gpu), np.nanmean(m_cpu), rtol=1e-2)
+
+
+def _cluster_tables(n, sc_size, dev, seed=0):
+    """Cluster tables of an n-triangle random soup with random attributes."""
+    rng = np.random.default_rng(seed)
+    v0 = (rng.normal(size=(n, 3)) * 2.0).astype(np.float32)
+    e1, e2 = ((rng.normal(size=(n, 3)) * 0.2).astype(np.float32) for _ in range(2))
+    order, _, clusters = build_tri_bvh_sah(v0, e1, e2)
+    f32 = lambda *shape: rng.normal(size=shape).astype(np.float32)  # noqa: E731
+    attrs = (f32(n, 3), f32(n, 3), f32(n, 3), f32(n, 2), f32(n, 2), f32(n, 2),
+             rng.uniform(size=n) < 0.5, rng.integers(0, 9, n).astype(np.int32))
+    packed = tri_kernel.pack_clusters(v0[order], e1[order], e2[order], clusters,
+                                      *(a[order] for a in attrs), sc_size=sc_size)
+    return [torch.from_numpy(a).to(dev) for a in packed]
+
+
+def _tri_call(which, tables, o, d, t_in, plain):
+    cl, geo, attr, scl = tables
+    if which == "flat":
+        fn = tri_kernel.closest_tri_flat_plain if plain else tri_kernel.closest_tri_flat
+        return fn(o, d, t_in, 1e-3, cl, geo, attr)
+    fn = tri_kernel.closest_tri_two_level_plain if plain else tri_kernel.closest_tri_two_level
+    return fn(o, d, t_in, 1e-3, scl, cl, geo, attr, tri_kernel.SC_TWO_LEVEL)
+
+
+@pytest.mark.parametrize("b", [1, 255, 100_003])
+@pytest.mark.parametrize("which,n", [("flat", 3000), ("two_level", 3000), ("two_level", 60_000)])
+def test_tri_kernel_bit_equal_to_plain(cuda, which, n, b):
+    sc = tri_kernel.SC_FLAT if which == "flat" else tri_kernel.SC_TWO_LEVEL
+    tables = _cluster_tables(n, sc, cuda)
+    o, d, _ = _rays(b, 12, -3.0, 3.0, cuda)
+    if b > 1000:  # edge lanes: axis-aligned (flushed 1/d), signed zeros, NaN
+        d[:8] = torch.tensor([[0.0, 0.0, 1.0], [0.0, -0.0, -1.0], [1.0, 0.0, 0.0], [-0.0, 1.0, 0.0],
+                              [float("nan"), 0.0, 1.0], [0.0, 0.0, 0.0], [1e-30, -1.0, 0.0],
+                              [0.6, 0.8, -0.0]], device=cuda)
+        o[8] = float("nan")
+    rng = np.random.default_rng(b)
+    t_in = torch.from_numpy(np.where(rng.uniform(size=b) < 0.2, 0.0, 3e38).astype(np.float32)).to(cuda)
+    before = tri_kernel.launches[which]
+    kt, ki, ka = _tri_call(which, tables, o, d, t_in, plain=False)
+    pt, pi, pa = _tri_call(which, tables, o, d, t_in, plain=True)
+    torch.cuda.synchronize()
+    assert tri_kernel.launches[which] == before + 1
+    assert torch.equal(kt.view(torch.int32), pt.view(torch.int32)) and torch.equal(ki, pi)
+    for k in ("ns_raw", "u", "v"):
+        assert torch.equal(ka[k].view(torch.int32), pa[k].view(torch.int32)), k
+    assert torch.equal(ka["mat"], pa["mat"])
+    if b > 1000:
+        assert (pt < 3e38).float().mean() > 0.05
+
+
+def test_tri_kernel_argument_checks(cuda):
+    cl, geo, attr, scl = _cluster_tables(500, tri_kernel.SC_TWO_LEVEL, cuda)
+    o, d, _ = _rays(64, 1, -3.0, 3.0, cuda)
+    t_in = torch.full((64,), 3e38, device=cuda)
+    with pytest.raises(ValueError, match="is on"):
+        tri_kernel.closest_tri_flat(o, d.cpu(), t_in, 1e-3, cl, geo, attr)
+    with pytest.raises(ValueError, match="sc_size"):
+        tri_kernel.closest_tri_two_level(o, d, t_in, 1e-3, scl, cl, geo, attr, 64)
+    with pytest.raises(TypeError, match="float32"):
+        tri_kernel.closest_tri_two_level(o, d, t_in.double(), 1e-3, scl, cl, geo, attr, 16)
+
+
+def _mesh_scene(width, spp):
+    """A wavy 5000-triangle height field under a quad light."""
+    n = 50
+    x, z = np.meshgrid(np.linspace(-2, 2, n + 1), np.linspace(-2, 2, n + 1))
+    y = 0.3 * np.sin(3 * x) * np.cos(2 * z)
+    pos = np.stack([x, y, z], axis=-1).reshape(-1, 3)
+    i = np.arange(n)[:, None] * (n + 1) + np.arange(n)[None, :]
+    quads = np.stack([i, i + 1, i + n + 2, i, i + n + 2, i + n + 1], axis=-1).reshape(-1, 3)
+    s = Scene()
+    s.add_mesh(dict(positions=pos, normals=None, uvs=None, indices=quads), Diffuse((0.6, 0.5, 0.4)))
+    s.add_quad((-1.0, 2.5, -1.0), (2.0, 0.0, 0.0), (0.0, 0.0, 2.0), Light((6.0, 6.0, 6.0)), light=True)
+    s.environment = (0.1, 0.1, 0.2)
+    cam = Camera(aspect_ratio=1.0, image_width=width, samples_per_pixel=spp, max_depth=6, vfov=50.0,
+                 look_from=(0.0, 2.0, 4.0), look_at=(0.0, 0.0, 0.0), blur_strength=0.5,
+                 focal_length=4.0, defocus_angle=0.0)
+    return s, cam
+
+
+def test_small_mesh_render_matches_cpu(cuda):
+    scene, cam = _mesh_scene(32, 4)
+    assert scene.compile(device="cpu").data.has_tri_clusters
+    _, m_cpu, _ = render_image(scene.compile(device="cpu"), cam, progress=False)
+    before = tri_kernel.launches["flat"]
+    _, m_gpu, stats = render_image(scene.compile(device=cuda), cam, progress=False)
+    assert tri_kernel.launches["flat"] - before == stats.iterations > 0
     close = np.isclose(m_gpu, m_cpu, rtol=1e-3, atol=1e-4, equal_nan=True).all(-1).mean()
     assert close >= 0.95
     np.testing.assert_allclose(np.nanmean(m_gpu), np.nanmean(m_cpu), rtol=1e-2)

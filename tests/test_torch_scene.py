@@ -1,7 +1,8 @@
 """The port's scene compiler against the reference's: every SceneData field equal.
 
 Tolerance: none. Both compilers run the same float64 host math and cast to float32
-once, so every tensor must equal the reference's array exactly.
+once, so every tensor must equal the reference's array exactly. The port's packed
+cluster blocks are compared with the reference's relaid (from_reference_packing).
 """
 
 import dataclasses
@@ -12,6 +13,7 @@ import torch
 
 from tpupt.scene import builder as JB
 from tpupt.scenes import SCENES as JSCENES
+from tpupt_torch.ops.tri_kernel import from_reference_packing
 from tpupt_torch.scene import builder as TB
 from tpupt_torch.scene import data as TD
 from tpupt_torch.scene.convert import scene_data_from_numpy
@@ -19,9 +21,11 @@ from tpupt_torch.scenes import SCENES as TSCENES
 
 
 def _assert_same(tsd, jsd):
+    geo, attr = from_reference_packing(np.asarray(jsd.tri_pk), np.asarray(jsd.tri_pk2))
     for name in TD.tensor_fields():
         a = getattr(tsd, name)
-        b = np.asarray(getattr(jsd, name))
+        b = {"tri_geo": geo, "tri_attr": attr}.get(name)
+        b = np.asarray(getattr(jsd, name)) if b is None else b
         assert a.device.type == "cpu"
         assert tuple(a.shape) == b.shape, name
         np.testing.assert_array_equal(a.numpy(), b, err_msg=name)
@@ -99,15 +103,15 @@ def test_scene_data_from_numpy(tmp_path):
         scene_data_from_numpy({"sph_r": fields["sph_r"]}, static, device="cpu")
 
 
-def test_unported_inputs_raise():
+def test_unported_inputs_raise(tmp_path, monkeypatch):
     s = TB.Scene()
     s.environment = TB.ImageTexture(np.zeros((2, 2, 3), np.uint8), hdr=True)
     with pytest.raises(NotImplementedError, match="HDR"):
         s.compile(device="cpu")
 
     s = TB.Scene()
-    s.add_sphere(1.0, (0, 0, 0), TB.Diffuse(TB.ImageTexture("earthmap.jpg")))
-    with pytest.raises(NotImplementedError, match="io/image"):
+    s.add_sphere(1.0, (0, 0, 0), TB.Diffuse(TB.ImageTexture(str(tmp_path / "earthmap.jpg"))))
+    with pytest.raises(FileNotFoundError):
         s.compile(device="cpu")
 
     rng = np.random.default_rng(0)
@@ -115,11 +119,17 @@ def test_unported_inputs_raise():
     mesh = dict(positions=rng.normal(size=(200, 3)), normals=None, uvs=None,
                 indices=rng.integers(0, 200, (64, 3)))
     s.add_mesh(mesh, TB.Diffuse((0.5, 0.5, 0.5)))
-    with pytest.raises(NotImplementedError, match="BVH"):
-        s.compile(device="cpu")
+    sd = s.compile(device="cpu").data  # 64 triangles: the cluster route
+    assert sd.has_tri_clusters and sd.tri_geo.shape == (64, 10, 64)
+    with pytest.raises(NotImplementedError, match="stackless BVH"):
+        s.compile(device="cpu", bvh=True)
 
-    with pytest.raises(NotImplementedError):
-        TSCENES[2][1](16, 4)
+    monkeypatch.setenv("TPUPT_ASSETS", str(tmp_path))
+    scene, _ = TSCENES[2][1](16, 4)
+    with pytest.raises(FileNotFoundError, match="earthmap.jpg"):
+        scene.compile(device="cpu")
+    with pytest.raises(FileNotFoundError, match="bunny.obj"):
+        TSCENES[6][1](16, 4)
 
 
 def test_default_device_is_cuda():

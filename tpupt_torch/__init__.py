@@ -5,11 +5,12 @@ names follow the reference so each part has an obvious counterpart:
 
     core/      float32 math, counter-based RNG, device selection
     scene/     builder API, SceneData, scene compiler, numpy -> SceneData bridge
-    ops/       intersection (hand-written CUDA closest-hit kernel), BSDFs,
-               lights, textures, environment
+    ops/       intersection (hand-written CUDA kernels for spheres/quads and
+               triangle clusters), SAH build, BSDFs, lights, textures, environment
     render/    camera, path-regeneration wavefront integrator, render driver
-    io/        PNG output
-    csrc/      CUDA C++ kernel sources, built with nvcc at first use
+    io/        OBJ and image input, PNG output
+    csrc/      CUDA C++ kernel sources and the C++ host library (OBJ parse,
+               SAH build), built at first use by build.py; native.py binds the latter
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``; without
 a GPU they raise instead of falling back to the CPU.

@@ -3,6 +3,7 @@
 Usage: python -m tpupt_torch.cli -s 3                  # 600 px, 100 spp on cuda
        python -m tpupt_torch.cli -s 3 --width 300 --spp 16 -o out/cornell.png
        python -m tpupt_torch.cli -s 3 --width 32 --spp 4 --device cpu
+       TPUPT_ASSETS=/path/to/assets python -m tpupt_torch.cli -s 6   # OBJ meshes, .hdr env
 """
 
 from __future__ import annotations
@@ -14,7 +15,10 @@ import os
 def main(argv=None):
     ap = argparse.ArgumentParser(description="tpupt_torch: PyTorch/CUDA path tracer")
     ap.add_argument("-q", "--quality", action="store_true", help="1920 px / 4000 spp preset")
-    ap.add_argument("-s", "--scene", type=int, default=1, help="scene number (1 and 3 need no assets)")
+    ap.add_argument(
+        "-s", "--scene", type=int, default=1,
+        help="scene number (1 and 3 need no assets; the others read $TPUPT_ASSETS)",
+    )
     ap.add_argument("--width", type=int, default=None, help="override image width")
     ap.add_argument("--spp", type=int, default=None, help="override samples per pixel")
     ap.add_argument("--seed", type=int, default=0)

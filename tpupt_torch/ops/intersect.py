@@ -1,9 +1,11 @@
 """Ray-scene closest hit over the SoA geometry tables (counterpart of ``tpupt/ops/intersect.py``).
 
 Spheres and quads always go through ``ops/hit_kernel.closest_sphere_quad`` (the
-CUDA kernel on the GPU, its plain version on the CPU). Triangles run the dense
-Möller–Trumbore sweep; the BVH, MXU and cluster-kernel triangle paths wait for
-their ports (ROADMAP).
+CUDA kernel on the GPU, its plain version on the CPU). Meshes compiled to
+clusters go through ``ops/tri_kernel.closest_tri`` (the flat or two-level cluster
+kernel), seeded with the sphere/quad winner; other triangle tables run the dense
+Möller–Trumbore sweep. The reference's stackless-BVH and MXU triangle paths wait
+for their ports (ROADMAP).
 
 Intersection math matches the reference:
   sphere   sphere.rs:64-100  (moving center lerped by time)
@@ -20,7 +22,7 @@ import torch
 
 from ..core import linalg as la
 from ..scene import data as D
-from . import hit_kernel
+from . import hit_kernel, tri_kernel
 from .texture import eval_texture
 
 BIG = la.BIG
@@ -94,12 +96,16 @@ def _tri_sweep(sd, o, d, tmin, tmax):
     return best_t, best_i
 
 
-def closest_hit(sd: "D.SceneData", o, d, time, tmin, tmax) -> Hit:
+def closest_hit(sd: "D.SceneData", o, d, time, tmin, tmax, alive=None) -> Hit:
     """Closest hit across all geometry (World::intersect_all, world.rs:47-62).
 
     Light rows sit after object rows (scene/compile.py), so strict-min selection
     reproduces the reference's tie-break (objects win); across kinds ties go
     sphere < quad < tri.
+
+    alive (optional [B] bool): dead lanes seed the cluster kernels with t_in = 0,
+    so they cull every cluster and stop widening their warp's visits (their hit
+    record is garbage either way; callers mask by alive).
     """
     sph, quad = hit_kernel.tables(sd)
     t_sq, kind_sq, idx_sq = hit_kernel.closest_sphere_quad(
@@ -110,7 +116,17 @@ def closest_hit(sd: "D.SceneData", o, d, time, tmin, tmax) -> Hit:
     i_s = torch.where(is_sph, idx_sq, 0)
     t_q = torch.where(~is_sph, t_sq, BIG)
     i_q = torch.where(~is_sph, idx_sq, 0)
-    t_t, i_t = _tri_sweep(sd, o, d, tmin, tmax)
+    tri_aux = None
+    if sd.has_tri_clusters or sd.has_tri_clusters_hbm:
+        # seeded with the sphere/quad winner, so closer geometry culls clusters
+        t_in = torch.minimum(torch.minimum(t_s, t_q), torch.full_like(t_s, tmax))
+        if alive is not None:
+            t_in = torch.where(alive, t_in, 0.0)
+        t_t, i_t, tri_aux = tri_kernel.closest_tri(
+            sd, o.contiguous(), d.contiguous(), t_in.contiguous(), tmin
+        )
+    else:
+        t_t, i_t = _tri_sweep(sd, o, d, tmin, tmax)
 
     t_best = torch.minimum(torch.minimum(t_s, t_q), t_t)
     kind = torch.where(
@@ -120,14 +136,16 @@ def closest_hit(sd: "D.SceneData", o, d, time, tmin, tmax) -> Hit:
     ).to(torch.int32)
     idx = torch.where(kind == KIND_SPHERE, i_s, torch.where(kind == KIND_QUAD, i_q, i_t))
     valid = t_best < BIG
-    return _make_hit(sd, o, d, time, t_best, kind, idx, valid)
+    return _make_hit(sd, o, d, time, t_best, kind, idx, valid, tri_aux)
 
 
-def _make_hit(sd, o, d, time, t, kind, idx, valid) -> Hit:
+def _make_hit(sd, o, d, time, t, kind, idx, valid, tri_aux=None) -> Hit:
     """Reconstruct hit attributes at the winning primitive (HitInfo::new).
 
     Miss lanes have t = BIG; t is clamped to 0 there so attribute math stays
-    finite (every consumer masks by `valid`).
+    finite (every consumer masks by `valid`). tri_aux: the cluster kernel's
+    interpolated attributes of the triangle winner, which replace the gathers
+    over the triangle tables.
     """
     t = torch.where(valid, t, 0.0)
     ox, oy, oz = o[..., 0], o[..., 1], o[..., 2]
@@ -165,6 +183,15 @@ def _make_hit(sd, o, d, time, t, kind, idx, valid) -> Hit:
     beta = qwx * (quy * prz - quz * pry) + qwy * (quz * prx - qux * prz) + qwz * (qux * pry - quy * prx)
 
     # ---- triangle attributes (mesh.rs:84-101) ----
+    if tri_aux is not None:
+        ntx, nty, ntz = la.unpack3(tri_aux["ns_raw"])
+        invt = 1.0 / torch.sqrt(torch.clamp(ntx * ntx + nty * nty + ntz * ntz, min=1e-24))
+        return _select_hit(
+            sd, t, kind, valid, dx, dy, dz, px, py, pz,
+            nsx, nsy, nsz, u_sph, v_sph, mat_sph,
+            qnx, qny, qnz, alpha, beta, mat_quad,
+            ntx * invt, nty * invt, ntz * invt, tri_aux["u"], tri_aux["v"], tri_aux["mat"],
+        )
     ti = torch.where(kind == KIND_TRI, idx, 0).to(torch.int64)
     v0x, v0y, v0z = la.unpack3(sd.tri_v0[ti])
     e1x, e1y, e1z = la.unpack3(sd.tri_e1[ti])

@@ -52,7 +52,7 @@ def bounce_step(
     `bounce` is an int or a per-lane int tensor. Returns (o_next, d_next, T, L,
     alive); callers mask o/d updates by `alive`.
     """
-    hit = closest_hit(sd, o, d, time, T_MIN, T_MAX)
+    hit = closest_hit(sd, o, d, time, T_MIN, T_MAX, alive=alive)
 
     # miss -> environment (camera.rs:180-183)
     env = sample_environment(sd, d)
@@ -140,14 +140,26 @@ def trace_radiance(sd, cam, pixel_ids, rows, cols, sample_ids, seed, max_depth, 
     return L, int(rays)
 
 
-def compaction_thresholds(b: int) -> list[int]:
+def compaction_thresholds(b: int, clusters: bool = False) -> list[int]:
     """Lane counts at which the streamed wavefront compacts its live lanes.
 
-    Inherited default of the reference package's non-cluster schedule (b/2, b/8,
-    b/32, each kept only at 4096 lanes or more, then 0); not yet re-derived for
-    this card.
+    The reference package's schedules, not yet re-derived for this card. Without
+    cluster kernels: b/2, b/8, b/32, each kept only at 4096 lanes or more, then 0.
+    With them (a dead lane costs the cluster kernel about as much as a live one
+    on the TPU): a sqrt(2) ladder in whole 1024-lane rows down to 2048, then 0.
+    Either way the schedule changes no per-sample result.
     """
-    return [t for t in (b // 2, b // 8, b // 32) if t >= 4096] + [0]
+    if not clusters:
+        return [t for t in (b // 2, b // 8, b // 32) if t >= 4096] + [0]
+    thresholds = []
+    t = b
+    while True:
+        t = int(t / 1.4142135624) & ~1023
+        if t < 2048:
+            break
+        if not thresholds or t < thresholds[-1]:
+            thresholds.append(t)
+    return thresholds + [0]
 
 
 def trace_film_streamed(
@@ -198,7 +210,7 @@ def trace_film_streamed(
 
     bank = torch.zeros((b, 3), **f32)
     iterations = 0
-    for thr in compaction_thresholds(b):
+    for thr in compaction_thresholds(b, sd.has_tri_clusters or sd.has_tri_clusters_hbm):
         while True:
             n_work = int(work_mask(s).sum())  # the one host sync of the iteration
             if n_work == 0 or n_work <= thr:

@@ -49,9 +49,9 @@ class CheckerTexture:
 class ImageTexture:
     """texture.rs:56-92: nearest-neighbor lookup, u clamped, v flipped.
 
-    `path` is an image file or an in-memory uint8 [H,W,3] array. The port reads
-    only arrays so far: image files wait for its io/image module (ROADMAP).
-    hdr=True (float HDR environment with importance sampling) waits as well.
+    `path` is an image file (read by io/image.py) or an in-memory uint8 [H,W,3]
+    array. hdr=True (float HDR environment with importance sampling) waits for
+    its port (ROADMAP).
     """
 
     path: object
@@ -292,8 +292,12 @@ class Scene:
         uvs = None if obj["uvs"] is None else obj["uvs"].astype(np.float64)
         self.objects.append(MeshRec(pos, nrm, uvs, obj["indices"], material))
 
-    def compile(self, device=None):
-        """Compile to SceneData tensors on `device` (default cuda; see core/device.py)."""
+    def compile(self, device=None, bvh: bool | None = None):
+        """Compile to SceneData tensors on `device` (default cuda; see core/device.py).
+
+        bvh: None routes meshes of 64+ triangles to the cluster kernels, False
+        forces the dense triangle sweep, True (the stackless BVH) raises.
+        """
         from .compile import compile_scene
 
-        return compile_scene(self, device=device)
+        return compile_scene(self, device=device, bvh=bvh)

@@ -7,9 +7,15 @@ geometry so closest-hit ties resolve to objects (world.rs:47-62). The tables are
 built in numpy (float64 where the reference does) and moved to the device once by
 ``scene/convert.py``.
 
-Not carried yet, and raising ``NotImplementedError`` until their ROADMAP items land:
-image files (io/image), the HDR environment with importance sampling, and meshes of
-``BVH_THRESHOLD`` triangles or more (the BVH and cluster-kernel paths).
+Meshes of ``BVH_THRESHOLD`` triangles or more are SAH-ordered and cut into
+clusters for the cluster kernels (ops/tri_kernel.py). The route is chosen by the
+table size, for the card, not by backend: at most ``FLAT_MAX_CLUSTERS`` packed
+clusters go to the flat kernel, more (up to ``MAX_CLUSTERS``) to the two-level
+kernel with superclusters of 16, beyond that the dense sweep.
+
+Not carried yet, and raising ``NotImplementedError`` until their ROADMAP items
+land: the HDR environment with importance sampling, and ``bvh=True`` (the
+stackless BVH).
 """
 
 from __future__ import annotations
@@ -19,6 +25,11 @@ import numpy as np
 from . import builder as B
 from . import data as D
 from ..core.dtypes import NP_REAL
+from ..ops.bvh import build_tri_bvh_sah
+from ..ops.tri_kernel import (
+    ATTR_ROWS, FLAT_MAX_CLUSTERS, GEO_ROWS, MAX_CLUSTERS, SC_FLAT, SC_TWO_LEVEL, SLOTS,
+    pack_clusters,
+)
 from .convert import scene_data_from_numpy
 
 BVH_THRESHOLD = 64  # meshes at or above this size need the BVH / cluster paths
@@ -30,10 +41,9 @@ def _image_rgb8(tex: "B.ImageTexture") -> np.ndarray:
         if img.dtype != np.uint8 or img.ndim != 3 or img.shape[2] != 3:
             raise ValueError("an in-memory ImageTexture must be a uint8 [H,W,3] array")
         return img
-    raise NotImplementedError(
-        f"image file {tex.path!r}: the port does not read image files yet "
-        "(ROADMAP Queue 1 item 2, io/image); pass a uint8 [H,W,3] array"
-    )
+    from ..io.image import load_image_rgb8
+
+    return load_image_rgb8(tex.path)
 
 
 def _intern_texture(tex, tables) -> int:
@@ -189,8 +199,56 @@ def _pad_to_block(rows, pad_row):
     return list(rows) + [pad_row] * (target - len(rows))
 
 
-def compile_numpy(scene: "B.Scene") -> tuple[dict, dict, bool]:
-    """Builder scene -> (numpy tensor fields, static facts, has_lights)."""
+def _cluster_tables(tri: dict, n_real: int, bvh):
+    """SAH-order the triangle tables and pack clusters -> (tri, perm, tables, static).
+
+    perm is the SAH order (old index per new slot), None when the tables keep
+    their order (small meshes, ``bvh=False``, or tables beyond MAX_CLUSTERS,
+    which the dense sweep takes as in the reference).
+    """
+    no_clusters = dict(has_tri_clusters=False, has_tri_clusters_hbm=False, tri_sc_size=SC_FLAT)
+    box = np.zeros((8, 8), dtype=np.float32)
+    box[:, 0:6] = 1e30  # pad boxes: the slab test never passes
+    empty = dict(
+        tri_cl=box, tri_scl=box.copy(),
+        tri_geo=np.zeros((8, GEO_ROWS, SLOTS), np.float32),
+        tri_attr=np.zeros((8, ATTR_ROWS, SLOTS), np.float32),
+    )
+    if bvh:
+        raise NotImplementedError(
+            "bvh=True: the stackless BVH traversal is not ported yet (ROADMAP); "
+            "meshes take the cluster kernels by default, bvh=False forces the dense sweep"
+        )
+    if bvh is False or n_real < BVH_THRESHOLD:
+        return tri, None, empty, no_clusters
+    order, _, clusters = build_tri_bvh_sah(tri["tri_v0"], tri["tri_e1"], tri["tri_e2"])
+    tri = {k: v[order] for k, v in tri.items()}
+    packed = pack_clusters(*(tri[k] for k in _TRI_GEOM), clusters, *(tri[k] for k in _TRI_ATTR))
+    cp = packed[0].shape[0]
+    if cp <= FLAT_MAX_CLUSTERS:
+        static = dict(no_clusters, has_tri_clusters=True)
+    elif cp <= MAX_CLUSTERS:
+        packed = pack_clusters(
+            *(tri[k] for k in _TRI_GEOM), clusters, *(tri[k] for k in _TRI_ATTR),
+            sc_size=SC_TWO_LEVEL,
+        )
+        static = dict(no_clusters, has_tri_clusters_hbm=True, tri_sc_size=SC_TWO_LEVEL)
+    else:
+        return tri, order, empty, no_clusters
+    tables = dict(zip(("tri_cl", "tri_geo", "tri_attr", "tri_scl"), packed))
+    return tri, order, tables, static
+
+
+_TRI_GEOM = ("tri_v0", "tri_e1", "tri_e2")
+_TRI_ATTR = ("tri_n0", "tri_n1", "tri_n2", "tri_uv0", "tri_uv1", "tri_uv2", "tri_has_uv", "tri_mat")
+
+
+def compile_numpy(scene: "B.Scene", bvh: bool | None = None) -> tuple[dict, dict, bool]:
+    """Builder scene -> (numpy tensor fields, static facts, has_lights).
+
+    bvh: None routes meshes of BVH_THRESHOLD triangles or more to the cluster
+    kernels; False forces the dense sweep; True (the stackless BVH) raises.
+    """
     tables = dict(
         sph=[], quad=[], tri=[], lights=[], mat_rows=[], mat_ids={}, tex_rows=[], tex_ids={}, atlas=[]
     )
@@ -234,11 +292,6 @@ def compile_numpy(scene: "B.Scene") -> tuple[dict, dict, bool]:
     quad_d = (normal * quad_q).sum(-1)  # quad.rs:24
 
     # ---- triangles (pad: zero edges -> |a| < 1e-8 parallel reject, mesh.rs:60) ----
-    if len(tables["tri"]) >= BVH_THRESHOLD:
-        raise NotImplementedError(
-            f"{len(tables['tri'])} triangles: meshes of {BVH_THRESHOLD} or more need the "
-            "BVH / cluster-kernel path, not ported yet (ROADMAP Queue 1 item 7)"
-        )
     tri_real = tables["tri"] or [
         (np.zeros(3), np.zeros(3), np.zeros(3), (np.zeros(3),) * 3, (np.zeros(2),) * 3, False, 0)
     ]
@@ -255,9 +308,16 @@ def compile_numpy(scene: "B.Scene") -> tuple[dict, dict, bool]:
         tri_has_uv=np.array([t[5] for t in tri_real], dtype=bool),
         tri_mat=np.array([t[6] for t in tri_real], dtype=np.int32),
     )
+    tri, perm, cluster_tables, cluster_static = _cluster_tables(tri, len(tables["tri"]), bvh)
     tri = {k: _pad_rows(v) for k, v in tri.items()}
 
     # ---- lights (pad row never selected: the integrator masks on n_lights) ----
+    if perm is not None:  # the triangle table was SAH-reordered: remap triangle lights
+        inv_perm = np.empty_like(perm)
+        inv_perm[perm] = np.arange(len(perm), dtype=perm.dtype)
+        tables["lights"] = [
+            (k, int(inv_perm[g]) if k == D.GEOM_TRI else g) for k, g in tables["lights"]
+        ]
     lights = tables["lights"] or [(D.GEOM_SPHERE, 0)]
     light_kind = np.array([l[0] for l in lights], dtype=np.int32)
     light_idx = np.array([l[1] for l in lights], dtype=np.int32)
@@ -312,6 +372,7 @@ def compile_numpy(scene: "B.Scene") -> tuple[dict, dict, bool]:
         quad_d=quad_d.astype(f32),
         quad_mat=quad_mat,
         **tri,
+        **cluster_tables,
         light_kind=light_kind,
         light_idx=light_idx,
         light_geom=light_geom,
@@ -343,11 +404,12 @@ def compile_numpy(scene: "B.Scene") -> tuple[dict, dict, bool]:
         env_map_w=int(tex_img[env_tex_id][1]) if env_img else 0,
         env_map_h=int(tex_img[env_tex_id][2]) if env_img else 0,
         n_lights_real=len(tables["lights"]),
+        **cluster_static,
     )
     return fields, static, has_lights
 
 
-def compile_scene(scene: "B.Scene", device=None) -> CompiledScene:
-    """Compile a builder scene to SceneData on `device` (default cuda)."""
-    fields, static, has_lights = compile_numpy(scene)
+def compile_scene(scene: "B.Scene", device=None, bvh: bool | None = None) -> CompiledScene:
+    """Compile a builder scene to SceneData on `device` (default cuda); bvh as in compile_numpy."""
+    fields, static, has_lights = compile_numpy(scene, bvh)
     return CompiledScene(scene_data_from_numpy(fields, static, device), has_lights)

@@ -3,7 +3,9 @@
 Builds the port's SceneData from a compiled scene given as numpy arrays and static
 facts — the port's own compiler output, or the reference package's SceneData
 fields converted with ``np.asarray``. Feeding both packages one compiled scene
-separates "the renderers agree" from "the compilers agree".
+separates "the renderers agree" from "the compilers agree". The reference's
+packed cluster blocks (``tri_pk``, ``tri_pk2``) are relaid into the port's
+``tri_geo``/``tri_attr`` when those are absent.
 """
 
 from __future__ import annotations
@@ -20,8 +22,6 @@ _UNPORTED_FLAGS = (
     "env_is_hdr",
     "has_tri_bvh",
     "has_tri_mxu",
-    "has_tri_clusters",
-    "has_tri_clusters_hbm",
 )
 
 _FLOAT_DTYPES = (np.float16, np.float32, np.float64)
@@ -44,6 +44,11 @@ def scene_data_from_numpy(fields: dict, static: dict, device=None) -> D.SceneDat
         if static.get(flag):
             raise NotImplementedError(f"{flag}: this path is not ported yet (ROADMAP)")
     dev = resolve_device(device)
+    if "tri_geo" not in fields and "tri_pk" in fields:
+        from ..ops.tri_kernel import from_reference_packing
+
+        geo, attr = from_reference_packing(fields["tri_pk"], fields["tri_pk2"])
+        fields = dict(fields, tri_geo=geo, tri_attr=attr)
     missing = [n for n in D.tensor_fields() if n not in fields]
     if missing:
         raise KeyError(f"scene fields missing: {missing}")

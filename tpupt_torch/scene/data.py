@@ -14,8 +14,10 @@ flags are plain Python attributes here.
 Every table holds at least one row (a degenerate pad entry: negative-radius sphere,
 zero quad, zero-area triangle).
 
-Not carried yet (ROADMAP): the HDR environment's alias tables, and the triangle
-BVH / cluster / MXU tables of the large-mesh paths.
+Meshes of 64 or more triangles are SAH-ordered and packed into cluster tables
+(``ops/tri_kernel.py`` documents the layout). Not carried yet (ROADMAP): the HDR
+environment's alias tables, and the stackless-BVH and MXU tables of the
+reference's other large-mesh paths.
 """
 
 from __future__ import annotations
@@ -66,6 +68,9 @@ STATIC_FIELDS = (
     "env_map_w",
     "env_map_h",
     "n_lights_real",
+    "has_tri_clusters",
+    "has_tri_clusters_hbm",
+    "tri_sc_size",
 )
 
 
@@ -98,6 +103,12 @@ class SceneData:
     tri_uv2: torch.Tensor  # [T,2]
     tri_has_uv: torch.Tensor  # [T] bool — false => barycentric (u,v)
     tri_mat: torch.Tensor  # [T] int32
+
+    # triangle clusters (SAH order; layout in ops/tri_kernel.py)
+    tri_cl: torch.Tensor  # [Cp,8] cluster AABBs
+    tri_scl: torch.Tensor  # [SCp,8] supercluster AABBs
+    tri_geo: torch.Tensor  # [Cp,10,64] v0, e1, e2, id per slot
+    tri_attr: torch.Tensor  # [Cp,16,64] n0, n1, n2, uv0, uv1, uv2, mat + HAS_UV_FLAG
 
     # lights: rows referencing geometry
     light_kind: torch.Tensor  # [L] int32 GEOM_*
@@ -139,6 +150,11 @@ class SceneData:
     env_map_w: int = 0
     env_map_h: int = 0
     n_lights_real: int = 0  # geometry lights (light table may hold one pad row)
+    # triangle routing (the reference's flag names): the flat cluster kernel, or
+    # the two-level one (the reference's HBM kernel), or neither (dense sweep)
+    has_tri_clusters: bool = False
+    has_tri_clusters_hbm: bool = False
+    tri_sc_size: int = 64  # clusters per supercluster of tri_scl
 
     def __post_init__(self):
         # host copy of the (kind, index) light rows: the light pdf loops over
