@@ -11,6 +11,9 @@ The main path is the forward render (render_image) of:
   the flat cluster kernel (K2), spheres and quads through K1;
 - "bigmesh", a 318k-triangle mesh (a 4968-triangle mesh subdivided 3 times),
   600x600, max_depth 50: the two-level cluster kernel (K3).
+Each kernel is held bit-equal to its plain version on random and camera rays; K2 and
+K3 also on the bounce rays that follow their camera rays' hits, and are timed on
+both batches.
 The repository ships no asset files, so the script writes stand-ins for scene 6's
 meshes (bunny.obj, spot.obj, cow.obj: lumpy spheres of the real meshes' triangle
 counts) and its environment map (grace_probe_latlong.hdr: a synthetic sky) to a
@@ -67,8 +70,13 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+SPIN_CYCLES = 20_000_000  # ~10 ms of the card: longer than the host needs to enqueue a round
+
+
 def cuda_ms(fn, reps=20, rounds=7):
-    """Median over `rounds` of the mean time of `reps` calls, by CUDA events (after warm-up)."""
+    """Median over `rounds` of the mean device time of `reps` calls, by CUDA events (after
+    warm-up). A spin kernel holds the stream while the host enqueues the calls, so they run
+    back to back and a short kernel's time is not the host's time to launch it."""
     for _ in range(2):
         fn()
     torch.cuda.synchronize()
@@ -76,6 +84,7 @@ def cuda_ms(fn, reps=20, rounds=7):
     for _ in range(rounds):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SPIN_CYCLES)  # private to torch, the one spin kernel it ships
         start.record()
         for _ in range(reps):
             fn()
@@ -101,6 +110,29 @@ def camera_rays(camera, dev, seed=0):
     pix = torch.arange(w * h, dtype=torch.int32, device=dev)
     o, d, t = generate_rays(camera.init(dev), pix // w, pix % w, pix, torch.zeros_like(pix), seed)
     return o.contiguous(), d.contiguous(), t.contiguous()
+
+
+def bounce_rays(o, d, t, ns_raw, seed):
+    """The batch that follows a batch of hits: origin o + t d, direction cosine-sampled about
+    the shading normal (turned against the incoming ray) by a seeded generator, open seed.
+    Lanes that missed keep their ray and are dead (t_in = 0), as closest_hit seeds them."""
+    hit = t < 3e38
+    n = ns_raw / ns_raw.norm(dim=1, keepdim=True).clamp_min(1e-20)
+    n = torch.where((n * d).sum(dim=1, keepdim=True) > 0, -n, n)
+    gen = torch.Generator(device=o.device)
+    gen.manual_seed(seed)
+    u = torch.rand((o.shape[0], 2), generator=gen, device=o.device)
+    r, phi = u[:, 0:1].sqrt(), 2.0 * math.pi * u[:, 1:2]
+    axis = torch.where(n[:, 0:1].abs() > 0.9, n.new_tensor([0.0, 1.0, 0.0]), n.new_tensor([1.0, 0.0, 0.0]))
+    tx = torch.linalg.cross(axis, n)
+    tx = tx / tx.norm(dim=1, keepdim=True).clamp_min(1e-20)
+    ty = torch.linalg.cross(n, tx)
+    nd = tx * (r * phi.cos()) + ty * (r * phi.sin()) + n * (1.0 - u[:, 0:1]).sqrt()
+    nd = nd / nd.norm(dim=1, keepdim=True).clamp_min(1e-20)
+    no = torch.where(hit[:, None], o + t[:, None] * d, o)
+    nd = torch.where(hit[:, None], nd, d)
+    t_in = torch.where(hit, 3e38, 0.0).to(torch.float32)
+    return no.contiguous(), nd.contiguous(), t_in.contiguous()
 
 
 def bound(flops, nbytes):
@@ -226,7 +258,7 @@ def tri_args(sd):
     from tpupt_torch.ops import tri_kernel as TK
 
     if sd.has_tri_clusters:
-        tables = (sd.tri_cl, sd.tri_geo, sd.tri_attr)
+        tables = (sd.tri_scl, sd.tri_cl, sd.tri_geo, sd.tri_attr)
         return (lambda o, d, t: TK.closest_tri_flat(o, d, t, 1e-3, *tables),
                 lambda o, d, t, counts=None: TK.closest_tri_flat_plain(o, d, t, 1e-3, *tables, counts))
     tables = (sd.tri_scl, sd.tri_cl, sd.tri_geo, sd.tri_attr, sd.tri_sc_size)
@@ -264,9 +296,11 @@ def tri_test_rays(sd, b, seed, dev):
     return o, d, torch.from_numpy(t_in.astype(np.float32)).to(dev)
 
 
-def time_tri(name, sd, o, d, t_in):
-    """Kernel and plain times at the main path's lane count, and the bound from the plain counts."""
+def time_tri(name, sd, batch, rays):
+    """Kernel and plain times on one batch at the main path's lane count, and the bound from
+    the plain version's counted tests -> (ms, plain_ms, bound_ms, bound_by)."""
     kernel, plain = tri_args(sd)
+    o, d, t_in = rays
     ms = cuda_ms(lambda: kernel(o, d, t_in))
     plain_ms = cuda_ms(lambda: plain(o, d, t_in), reps=1, rounds=3)
     counts = {}
@@ -275,10 +309,11 @@ def time_tri(name, sd, o, d, t_in):
     tables = sum(x.numel() * 4 for x in (sd.tri_cl, sd.tri_scl, sd.tri_geo, sd.tri_attr))
     nbytes = o.shape[0] * TRI_RAY_BYTES + tables
     bound_ms, bound_by = bound(flops, nbytes)
-    log(f"{name} at B={o.shape[0]}, {sd.tri_cl.shape[0]} clusters: kernel {ms:.4f} ms, plain "
-        f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: {counts['box_tests']} box tests, "
-        f"{counts['tri_tests']} triangle tests, {flops:.3e} flop, {nbytes:.3e} B); "
-        f"no single PyTorch call computes it")
+    log(f"{name} [{batch}] at B={o.shape[0]} ({float((t_in > 0).float().mean()):.4f} alive), "
+        f"{sd.tri_cl.shape[0]} clusters: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+        f"{bound_ms:.4f} ms ({bound_by}: {counts['box_tests']} box tests, {counts['tri_tests']} "
+        f"triangle tests, {flops:.3e} flop, {nbytes:.3e} B; bytes alone "
+        f"{1e3 * nbytes / PEAK_BYTES_PER_S:.4f} ms); no single PyTorch call computes it")
     return ms, plain_ms, bound_ms, bound_by
 
 
@@ -399,6 +434,9 @@ def main(argv=None) -> int:
             if any(w in line for w in ("registers", "smem", "spill")):
                 log(f"  {name}: {line.strip()}")
     log(f"host builder (OBJ parse, SAH build): {native.builder()}")
+    if not native.available():  # the numpy fallback would hide a failed g++ build
+        print("chip_smoke: the compiled host library is not in use", file=sys.stderr)
+        return 1
 
     asset_dir = tempfile.mkdtemp(prefix="tpupt_assets_")
     try:
@@ -450,11 +488,16 @@ def run(args, dev, hit_kernel, render_image, cornell_box_scene, balls_scene, eve
         n, e = check_k1(hit_kernel, sph, quad, rays, label)
         bad["K1"] += n
         err["K1"] = max(err["K1"], e)
-    big_seed = lambda r: (r[0], r[1], torch.full_like(r[2], 3e38))  # noqa: E731
+    tri_batches = {}
     for name, sd, cam, seed in (("K2", s6.data, s6cam, 3), ("K3", big.data, bcam, 4)):
+        o, d, t = camera_rays(cam, dev)
+        camera = (o, d, torch.full_like(t, 3e38))
+        kt, _, ka = tri_args(sd)[0](*camera)
+        tri_batches[name] = {"camera": camera, "bounce": bounce_rays(o, d, kt, ka["ns_raw"], seed + 10)}
         for label, rays in (
             (f"{name} random", tri_test_rays(sd, 1 << 20, seed, dev)),
-            (f"{name} camera", big_seed(camera_rays(cam, dev))),
+            (f"{name} camera", camera),
+            (f"{name} bounce", tri_batches[name]["bounce"]),
         ):
             n, e = check_tri(name, sd, rays, label)
             bad[name] += n
@@ -474,8 +517,10 @@ def run(args, dev, hit_kernel, render_image, cornell_box_scene, balls_scene, eve
         f"{k1_plain:.4f} ms, bound {k1_bound:.4f} ms ({k1_by}: {flops:.3e} flop, {nbytes:.3e} B); "
         f"no single PyTorch call computes it")
     timing = {"K1": (k1_ms, k1_plain, k1_bound, k1_by)}
-    timing["K2"] = time_tri("K2", s6.data, *big_seed(camera_rays(s6cam, dev)))
-    timing["K3"] = time_tri("K3", big.data, *big_seed(camera_rays(bcam, dev)))
+    bounce = {}
+    for name, sd in (("K2", s6.data), ("K3", big.data)):
+        timing[name] = time_tri(name, sd, "camera", tri_batches[name]["camera"])
+        bounce[name] = time_tri(name, sd, "bounce", tri_batches[name]["bounce"])
     kernel_ms = {k: v[0] for k, v in timing.items()}
 
     # ---- the main path: three renders through render_image ----
@@ -514,6 +559,9 @@ def run(args, dev, hit_kernel, render_image, cornell_box_scene, balls_scene, eve
             max_abs_err=err[k], ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
             library_ms=None, status=f"ported, launches {launches[k]}, mismatches {bad[k]}",
         ))
+        if k in bounce:  # the same kernel on the rays that follow the camera rays' hits
+            b_ms, b_plain, b_bound, _ = bounce[k]
+            kernels[-1].update(ms_bounce=b_ms, plain_ms_bounce=b_plain, bound_ms_bounce=b_bound)
     return kernels
 
 

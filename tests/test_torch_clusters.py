@@ -89,6 +89,36 @@ def test_packing_matches_reference(sc_size):
     np.testing.assert_array_equal(r_attr, attr)
 
 
+@pytest.mark.parametrize("sc_size", [64, 16])
+def test_boxes_nest(sc_size):
+    """Every packed cluster box lies inside its supercluster box, and every
+    supercluster box inside its top box (no tolerance: the unions are exact)."""
+    v0, e1, e2, at = _soup(3000 if sc_size == 64 else 30_000, 3, spread=3.0, size=0.1)
+    order, _, cl = t_build(v0, e1, e2)
+    packed = TK.pack_clusters(v0[order], e1[order], e2[order], cl,
+                              *(at[k][order] for k in _ATTR), sc_size=sc_size)
+    cl_box, sc_box = packed[0], packed[3]
+    n_sc = cl_box.shape[0] // sc_size
+    real = cl_box[:, 0] < TK.PAD_BOX
+    assert real.sum() == len(cl["start"]) and not real[-1]  # at least one pad cluster
+    parent = sc_box[np.arange(cl_box.shape[0]) // sc_size]
+    assert (parent[real, 0:3] <= cl_box[real, 0:3]).all() and (cl_box[real, 3:6] <= parent[real, 3:6]).all()
+    top = TK.top_boxes(torch.from_numpy(sc_box), n_sc).numpy()
+    assert top.shape == ((n_sc + TK.TOP_GROUP - 1) // TK.TOP_GROUP, 8)
+    assert (n_sc > TK.TOP_GROUP) == (sc_size == 16)  # the small table has one top box
+    sc_real = sc_box[:n_sc, 0] < TK.PAD_BOX
+    parent = top[np.arange(n_sc) // TK.TOP_GROUP]
+    assert (parent[sc_real, 0:3] <= sc_box[:n_sc][sc_real, 0:3]).all()
+    assert (sc_box[:n_sc][sc_real, 3:6] <= parent[sc_real, 3:6]).all()
+    assert (top[:, 3:6] < TK.PAD_BOX).all()  # pad rows do not widen a top box
+    # a group of pad rows only gives a pad box, which no ray enters
+    pads = torch.full((20, 8), TK.PAD_BOX)
+    pads[3, :6] = torch.tensor([0.0, 0.0, 0.0, 1.0, 1.0, 1.0])
+    t2 = TK.top_boxes(pads, 20)
+    assert t2[0, :6].tolist() == [0.0, 0.0, 0.0, 1.0, 1.0, 1.0]
+    assert (t2[1, :6] == TK.PAD_BOX).all()
+
+
 def _mesh_scene(B, n=2500, seed=2):
     """A random mesh with vertex normals and UVs, a triangle-mesh light, a sphere."""
     rng = np.random.default_rng(seed)
@@ -181,7 +211,7 @@ def compare_with_pallas(hbm):
     if hbm:
         tt, ti, taux = TK.closest_tri_two_level(*args, sc_box, cl_box, geo, attr, sc)
     else:
-        tt, ti, taux = TK.closest_tri_flat(*args, cl_box, geo, attr)
+        tt, ti, taux = TK.closest_tri_flat(*args, sc_box, cl_box, geo, attr)
     hit = np.asarray(jt) < 3e38
     assert 0.2 < hit.mean() < 0.6 and not hit[768:].any()  # dead lanes miss
     np.testing.assert_array_equal(tt.numpy() < 3e38, hit)

@@ -89,13 +89,27 @@ def _cluster_tables(n, sc_size, dev, seed=0):
     return [torch.from_numpy(a).to(dev) for a in packed]
 
 
-def _tri_call(which, tables, o, d, t_in, plain):
+def _tri_call(which, tables, o, d, t_in, plain, sc_size=tri_kernel.SC_TWO_LEVEL):
     cl, geo, attr, scl = tables
     if which == "flat":
         fn = tri_kernel.closest_tri_flat_plain if plain else tri_kernel.closest_tri_flat
-        return fn(o, d, t_in, 1e-3, cl, geo, attr)
+        return fn(o, d, t_in, 1e-3, scl, cl, geo, attr)
     fn = tri_kernel.closest_tri_two_level_plain if plain else tri_kernel.closest_tri_two_level
-    return fn(o, d, t_in, 1e-3, scl, cl, geo, attr, tri_kernel.SC_TWO_LEVEL)
+    return fn(o, d, t_in, 1e-3, scl, cl, geo, attr, sc_size)
+
+
+def _assert_bit_equal(which, tables, o, d, t_in, sc_size=tri_kernel.SC_TWO_LEVEL):
+    """One launch of the kernel against its plain version -> the plain version's t."""
+    before = tri_kernel.launches[which]
+    kt, ki, ka = _tri_call(which, tables, o, d, t_in, False, sc_size)
+    pt, pi, pa = _tri_call(which, tables, o, d, t_in, True, sc_size)
+    torch.cuda.synchronize()
+    assert tri_kernel.launches[which] == before + 1
+    assert torch.equal(kt.view(torch.int32), pt.view(torch.int32)) and torch.equal(ki, pi)
+    for k in ("ns_raw", "u", "v"):
+        assert torch.equal(ka[k].view(torch.int32), pa[k].view(torch.int32)), k
+    assert torch.equal(ka["mat"], pa["mat"])
+    return pt
 
 
 @pytest.mark.parametrize("b", [1, 255, 100_003])
@@ -111,17 +125,65 @@ def test_tri_kernel_bit_equal_to_plain(cuda, which, n, b):
         o[8] = float("nan")
     rng = np.random.default_rng(b)
     t_in = torch.from_numpy(np.where(rng.uniform(size=b) < 0.2, 0.0, 3e38).astype(np.float32)).to(cuda)
-    before = tri_kernel.launches[which]
-    kt, ki, ka = _tri_call(which, tables, o, d, t_in, plain=False)
-    pt, pi, pa = _tri_call(which, tables, o, d, t_in, plain=True)
-    torch.cuda.synchronize()
-    assert tri_kernel.launches[which] == before + 1
-    assert torch.equal(kt.view(torch.int32), pt.view(torch.int32)) and torch.equal(ki, pi)
-    for k in ("ns_raw", "u", "v"):
-        assert torch.equal(ka[k].view(torch.int32), pa[k].view(torch.int32)), k
-    assert torch.equal(ka["mat"], pa["mat"])
+    pt = _assert_bit_equal(which, tables, o, d, t_in)
     if b > 1000:
         assert (pt < 3e38).float().mean() > 0.05
+
+
+@pytest.mark.parametrize("p", [1, 2, 19, 20, 21, 32])
+@pytest.mark.parametrize("which", ["flat", "two_level"])
+def test_tri_kernel_lane_masks(cuda, which, p):
+    """Warps in which p lanes carry the same ray and the others are dead, so every visited
+    cluster has a lane mask of p lanes, from one to the whole warp. The batch ends in a
+    ragged packet."""
+    sc = tri_kernel.SC_FLAT if which == "flat" else tri_kernel.SC_TWO_LEVEL
+    tables = _cluster_tables(3000 if which == "flat" else 40_000, sc, cuda, seed=5)
+    warps, tail = 600, 7
+    rng = np.random.default_rng(p)
+    o = rng.uniform(-3.0, 3.0, size=(warps + 1, 1, 3)).astype(np.float32)
+    d = -o + rng.normal(size=(warps + 1, 1, 3)).astype(np.float32)  # toward the soup
+    d /= np.linalg.norm(d, axis=2, keepdims=True)
+    live = np.argsort(rng.uniform(size=(warps + 1, 32)), axis=1) < p  # p random lanes a warp
+    t_in = np.where(live, 3e38, 0.0).astype(np.float32)
+    b = 32 * warps + tail
+    o, d = (np.broadcast_to(a, (warps + 1, 32, 3)).reshape(-1, 3)[:b].copy() for a in (o, d))
+    o, d, t_in = (torch.from_numpy(a).to(cuda) for a in (o, d, t_in.reshape(-1)[:b].copy()))
+    pt = _assert_bit_equal(which, tables, o, d, t_in)
+    assert (pt[t_in > 0] < 3e38).float().mean() > 0.3 and not (pt[t_in == 0] < 3e38).any()
+
+
+def _sliced_tables(n_clusters, per, sc_size, dev, seed=0):
+    """Tables of n_clusters clusters of `per` random triangles each: the triangles sorted
+    along x and cut into consecutive runs (any partition into runs is a valid table)."""
+    rng = np.random.default_rng(seed)
+    n = n_clusters * per
+    v0 = (rng.uniform(-2.0, 2.0, size=(n, 3))).astype(np.float32)
+    v0 = v0[np.argsort(v0[:, 0])]
+    e1, e2 = ((rng.normal(size=(n, 3)) * 0.1).astype(np.float32) for _ in range(2))
+    corners = np.stack([v0, v0 + e1, v0 + e2], axis=1).reshape(n_clusters, 3 * per, 3)
+    clusters = dict(start=(np.arange(n_clusters) * per).astype(np.int32),
+                    count=np.full(n_clusters, per, np.int32),
+                    bmin=corners.min(axis=1), bmax=corners.max(axis=1))
+    f32 = lambda *shape: rng.normal(size=shape).astype(np.float32)  # noqa: E731
+    attrs = (f32(n, 3), f32(n, 3), f32(n, 3), f32(n, 2), f32(n, 2), f32(n, 2),
+             rng.uniform(size=n) < 0.5, rng.integers(0, 9, n).astype(np.int32))
+    packed = tri_kernel.pack_clusters(v0, e1, e2, clusters, *attrs, sc_size=sc_size)
+    return [torch.from_numpy(a).to(dev) for a in packed]
+
+
+@pytest.mark.parametrize("which,n_clusters,sc_size", [
+    ("flat", 760, tri_kernel.SC_FLAT),  # packs to the flat kernel's limit of 768 clusters
+    ("two_level", 17_000, 8),  # 2126 superclusters: their boxes alone pass 48 KB of shared memory
+    ("two_level", 1000, 32),  # the largest superclusters the two-level kernel takes
+])
+def test_tri_kernel_table_sizes(cuda, which, n_clusters, sc_size):
+    tables = _sliced_tables(n_clusters, 8, sc_size, cuda)
+    cp = tables[0].shape[0]
+    assert cp == {760: tri_kernel.FLAT_MAX_CLUSTERS, 17_000: 17_008, 1000: 1024}[n_clusters]
+    o, d, _ = _rays(50_001, 13, -2.0, 2.0, cuda)
+    t_in = torch.full((o.shape[0],), 3e38, device=cuda)
+    pt = _assert_bit_equal(which, tables, o, d, t_in, sc_size)
+    assert (pt < 3e38).float().mean() > 0.3
 
 
 def test_tri_kernel_argument_checks(cuda):
@@ -129,7 +191,12 @@ def test_tri_kernel_argument_checks(cuda):
     o, d, _ = _rays(64, 1, -3.0, 3.0, cuda)
     t_in = torch.full((64,), 3e38, device=cuda)
     with pytest.raises(ValueError, match="is on"):
-        tri_kernel.closest_tri_flat(o, d.cpu(), t_in, 1e-3, cl, geo, attr)
+        tri_kernel.closest_tri_two_level(o, d.cpu(), t_in, 1e-3, scl, cl, geo, attr, 16)
+    with pytest.raises(ValueError, match="sc_size 64 must divide"):  # tables packed in 16s
+        tri_kernel.closest_tri_flat(o, d, t_in, 1e-3, scl, cl, geo, attr)
+    f_cl, f_geo, f_attr, f_scl = _cluster_tables(500, tri_kernel.SC_FLAT, cuda)
+    with pytest.raises(ValueError, match="is on"):
+        tri_kernel.closest_tri_flat(o, d.cpu(), t_in, 1e-3, f_scl, f_cl, f_geo, f_attr)
     with pytest.raises(ValueError, match="sc_size"):
         tri_kernel.closest_tri_two_level(o, d, t_in, 1e-3, scl, cl, geo, attr, 64)
     with pytest.raises(TypeError, match="float32"):

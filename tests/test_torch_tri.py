@@ -118,7 +118,7 @@ def _run(route, tables, o, d, t_in):
     args = (torch.tensor(o, dtype=torch.float32), torch.tensor(d, dtype=torch.float32),
             torch.tensor(t_in, dtype=torch.float32), 1e-3)
     if route == "flat":
-        return TK.closest_tri_flat(*args, cl, geo, attr)
+        return TK.closest_tri_flat(*args, scl, cl, geo, attr)
     return TK.closest_tri_two_level(*args, scl, cl, geo, attr, TK.SC_TWO_LEVEL)
 
 
@@ -143,6 +143,16 @@ def test_ties_go_to_lower_id_and_dead_lanes_miss(route, same_cluster):
     assert idx[3].item() == 1
 
 
+def one_level_plain(o, d, t_in, tmin, cl, geo, attr, counts):
+    """The cull without superclusters, on the plain versions' parts: every cluster box
+    against every ray, then the triangles of the (ray, cluster) pairs that pass."""
+    p = TK._Plain(o, d, t_in, tmin, geo, counts)
+    for rows in TK._ray_chunks(o.shape[0], cl.shape[0], o.device):
+        r, c = torch.nonzero(p.box_hits(rows, cl[None]), as_tuple=True)
+        p.triangles(rows[r], c)
+    return p.result(attr)
+
+
 def test_flat_and_two_level_plain_bit_equal():
     tsd = _blob(TB, n=4000, seed=3).compile(device="cpu").data
     tl = as_two_level(tsd)
@@ -153,7 +163,7 @@ def test_flat_and_two_level_plain_bit_equal():
     d = d / d.norm(dim=1, keepdim=True)
     t_in = torch.from_numpy(np.where(rng.uniform(size=b) < 0.2, 0.0, 3e38).astype(np.float32))
     c1, c2 = {}, {}
-    t1, i1, a1 = TK.closest_tri_flat_plain(o, d, t_in, 1e-3, tsd.tri_cl, tsd.tri_geo, tsd.tri_attr, c1)
+    t1, i1, a1 = one_level_plain(o, d, t_in, 1e-3, tsd.tri_cl, tsd.tri_geo, tsd.tri_attr, c1)
     t2, i2, a2 = TK.closest_tri_two_level_plain(
         o, d, t_in, 1e-3, tl.tri_scl, tl.tri_cl, tl.tri_geo, tl.tri_attr, tl.tri_sc_size, c2
     )
@@ -166,26 +176,55 @@ def test_flat_and_two_level_plain_bit_equal():
     assert c2["box_tests"] < c1["box_tests"]
 
 
+def test_flat_plain_with_and_without_superclusters_bit_equal():
+    """The flat plain version culling top and supercluster boxes first returns the
+    bits of the one-level cull over every cluster box, on a 3k-triangle mesh."""
+    tsd = _blob(TB, n=3000, seed=5).compile(device="cpu").data
+    assert tsd.has_tri_clusters and tsd.tri_sc_size == TK.SC_FLAT
+    rng = np.random.default_rng(6)
+    b = 3000
+    o = torch.from_numpy(rng.uniform(-3, 3, size=(b, 3)).astype(np.float32))
+    d = torch.from_numpy(rng.normal(size=(b, 3)).astype(np.float32))
+    d = d / d.norm(dim=1, keepdim=True)
+    d[:3] = torch.tensor([[0.0, 0.0, 1.0], [0.0, -0.0, -1.0], [1.0, 0.0, 0.0]])  # flushed 1/d
+    t_in = torch.from_numpy(np.where(rng.uniform(size=b) < 0.2, 0.0,
+                                     np.where(rng.uniform(size=b) < 0.3, 2.0, 3e38)).astype(np.float32))
+    tables = (tsd.tri_cl, tsd.tri_geo, tsd.tri_attr)
+    c1, c2 = {}, {}
+    t1, i1, a1 = one_level_plain(o, d, t_in, 1e-3, *tables, c1)
+    t2, i2, a2 = TK.closest_tri_flat_plain(o, d, t_in, 1e-3, tsd.tri_scl, *tables, c2)
+    assert (t1 < BIG).float().mean() > 0.3
+    assert torch.equal(t1.view(torch.int32), t2.view(torch.int32)) and torch.equal(i1, i2)
+    for k in ("ns_raw", "u", "v", "mat"):
+        assert torch.equal(a1[k], a2[k]), k
+    assert c1["tri_tests"] == c2["tri_tests"] > 0  # the extra levels only skip boxes
+    n_sc = tsd.tri_cl.shape[0] // TK.SC_FLAT
+    assert b <= c2["box_tests"] <= b * (1 + n_sc + tsd.tri_cl.shape[0])  # one top box, then down
+    assert c2["box_tests"] < c1["box_tests"] == b * tsd.tri_cl.shape[0]
+    t3, i3, _ = TK.closest_tri_flat(o, d, t_in, 1e-3, tsd.tri_scl, *tables)  # the wrapper on the CPU
+    assert torch.equal(t3.view(torch.int32), t2.view(torch.int32)) and torch.equal(i3, i2)
+
+
 def test_wrapper_argument_checks():
     tables = _tables([[[0.0, 0.0, 5.0], [1.0, 0.0, 5.0], [0.0, 1.0, 5.0]]], [0], [1], 64)
     cl, geo, attr, scl = tables
     o, d, t_in = torch.zeros(8, 3), torch.ones(8, 3), torch.full((8,), 3e38)
     with pytest.raises(ValueError, match="o \\[B,3\\]"):
-        TK.closest_tri_flat(o[:, :2].contiguous(), d, t_in, 1e-3, cl, geo, attr)
+        TK.closest_tri_flat(o[:, :2].contiguous(), d, t_in, 1e-3, scl, cl, geo, attr)
     with pytest.raises(ValueError, match="t_in"):
-        TK.closest_tri_flat(o, d, t_in[:4], 1e-3, cl, geo, attr)
+        TK.closest_tri_flat(o, d, t_in[:4], 1e-3, scl, cl, geo, attr)
     with pytest.raises(TypeError, match="float32"):
-        TK.closest_tri_flat(o, d, t_in.double(), 1e-3, cl, geo, attr)
+        TK.closest_tri_flat(o, d, t_in.double(), 1e-3, scl, cl, geo, attr)
     with pytest.raises(ValueError, match="contiguous"):
-        TK.closest_tri_flat(o, torch.ones(3, 8).T, t_in, 1e-3, cl, geo, attr)
+        TK.closest_tri_flat(o, torch.ones(3, 8).T, t_in, 1e-3, scl, cl, geo, attr)
     with pytest.raises(ValueError, match="geo \\[C,10,64\\]"):
-        TK.closest_tri_flat(o, d, t_in, 1e-3, cl, attr, geo)
+        TK.closest_tri_flat(o, d, t_in, 1e-3, scl, cl, attr, geo)
     with pytest.raises(ValueError, match="sc_size"):
         TK.closest_tri_two_level(o, d, t_in, 1e-3, scl, cl, geo, attr, 48)
     big = torch.zeros(TK.FLAT_MAX_CLUSTERS + 64, 8)
     with pytest.raises(ValueError, match="two_level"):
-        TK.closest_tri_flat(o, d, t_in, 1e-3, big, torch.zeros(big.shape[0], 10, 64),
+        TK.closest_tri_flat(o, d, t_in, 1e-3, scl, big, torch.zeros(big.shape[0], 10, 64),
                             torch.zeros(big.shape[0], 16, 64))
     before = dict(TK.launches)
-    TK.closest_tri_flat(o, d, t_in, 1e-3, cl, geo, attr)
+    TK.closest_tri_flat(o, d, t_in, 1e-3, scl, cl, geo, attr)
     assert TK.launches == before  # the plain version is not a launch

@@ -2,9 +2,12 @@
 ``csrc/tri_kernel.cu``, their plain PyTorch versions, and the cluster packing.
 
 Replaces ``tpupt/ops/pallas_tri.py``: ``_tri_cluster_kernel`` (the flat kernel
-here, tables of at most FLAT_MAX_CLUSTERS clusters) and
-``_tri_cluster_kernel_hbm`` (the two-level kernel, larger tables). See the
-kernel source for the contract, the bound and the design.
+here, tables of at most FLAT_MAX_CLUSTERS clusters in superclusters of SC_FLAT)
+and ``_tri_cluster_kernel_hbm`` (the two-level kernel, larger tables in
+superclusters of at most MAX_SC_SIZE). Both cull three levels of boxes: top
+boxes (unions of TOP_GROUP consecutive superclusters, derived from ``tri_scl``),
+superclusters, clusters. See the kernel source for the contract, the bound and
+the design.
 
 ``closest_tri`` routes by the scene compiler's flags; ``closest_tri_flat`` and
 ``closest_tri_two_level`` launch their kernel for CUDA tensors and run the plain
@@ -41,7 +44,9 @@ SC_FLAT = 64  # supercluster size of flat-kernel tables (the reference's VMEM gr
 SC_TWO_LEVEL = 16  # supercluster size of two-level tables (the reference's TPUPT_SC_HBM)
 FLAT_MAX_CLUSTERS = 768  # flat-kernel cut (the reference's CQX_MAX_CLUSTERS)
 MAX_CLUSTERS = 32768  # two-level cut (the reference's MAX_HBM_CLUSTERS)
-MAX_SC_SIZE = 32  # a supercluster's clusters fit one warp ballot each
+MAX_SC_SIZE = 32  # two-level tables: a supercluster's clusters fit one lane each
+TOP_GROUP = 8  # superclusters per top box
+PAD_BOX = 1e30  # every coordinate of a pad box
 
 PLAIN_ELEMS = 1 << 22  # elements per [rays, boxes] or [pairs, 64] step of the plain versions
 
@@ -131,7 +136,7 @@ def closest_tri(sd, o, d, t_in, tmin):
     lower triangle index.
     """
     if sd.has_tri_clusters:
-        return closest_tri_flat(o, d, t_in, tmin, sd.tri_cl, sd.tri_geo, sd.tri_attr)
+        return closest_tri_flat(o, d, t_in, tmin, sd.tri_scl, sd.tri_cl, sd.tri_geo, sd.tri_attr)
     if sd.has_tri_clusters_hbm:
         return closest_tri_two_level(
             o, d, t_in, tmin, sd.tri_scl, sd.tri_cl, sd.tri_geo, sd.tri_attr, sd.tri_sc_size
@@ -139,7 +144,7 @@ def closest_tri(sd, o, d, t_in, tmin):
     raise ValueError("closest_tri: the scene was not compiled to cluster tables")
 
 
-def _check(name, o, d, t_in, cl, geo, attr, scl=None):
+def _check(name, o, d, t_in, scl, cl, geo, attr, sc_size):
     b = o.shape[0] if o.dim() == 2 else -1
     if o.shape != (b, 3) or d.shape != (b, 3) or t_in.shape != (b,):
         raise ValueError(
@@ -153,11 +158,16 @@ def _check(name, o, d, t_in, cl, geo, attr, scl=None):
             f"{name}: need cl [C,8], geo [C,10,64], attr [C,16,64]; got "
             f"{tuple(cl.shape)}, {tuple(geo.shape)}, {tuple(attr.shape)}"
         )
-    tensors = [("o", o), ("d", d), ("t_in", t_in), ("cl", cl), ("geo", geo), ("attr", attr)]
-    if scl is not None:
-        if scl.dim() != 2 or scl.shape[1] != 8:
-            raise ValueError(f"{name}: need scl [S,8]; got {tuple(scl.shape)}")
-        tensors.append(("scl", scl))
+    if scl.dim() != 2 or scl.shape[1] != 8:
+        raise ValueError(f"{name}: need scl [S,8]; got {tuple(scl.shape)}")
+    n_sc = cp // sc_size if sc_size > 0 else 0
+    if n_sc < 1 or n_sc * sc_size != cp or scl.shape[0] < n_sc:
+        raise ValueError(
+            f"{name}: sc_size {sc_size} must divide the {cp} clusters, with one scl row per "
+            f"supercluster (got {scl.shape[0]})"
+        )
+    tensors = (("o", o), ("d", d), ("t_in", t_in), ("scl", scl), ("cl", cl), ("geo", geo),
+               ("attr", attr))
     for tname, x in tensors:
         if x.dtype != torch.float32:
             raise TypeError(f"{name}: {tname} must be float32, got {x.dtype}")
@@ -171,71 +181,72 @@ def _check(name, o, d, t_in, cl, geo, attr, scl=None):
         raise ValueError(f"{name}: unsupported device {o.device}")
 
 
-def closest_tri_flat(o, d, t_in, tmin, cl, geo, attr):
-    """One-level cull over at most FLAT_MAX_CLUSTERS clusters -> (t, idx, aux).
+def closest_tri_flat(o, d, t_in, tmin, scl, cl, geo, attr):
+    """Cull over at most FLAT_MAX_CLUSTERS clusters in superclusters of SC_FLAT -> (t, idx, aux).
 
     CUDA tensors launch the flat kernel; CPU tensors run `closest_tri_flat_plain`.
     """
-    _check("closest_tri_flat", o, d, t_in, cl, geo, attr)
-    if cl.shape[0] > FLAT_MAX_CLUSTERS:
+    if cl.dim() == 2 and cl.shape[0] > FLAT_MAX_CLUSTERS:
         raise ValueError(
-            f"closest_tri_flat: {cl.shape[0]} clusters, the flat kernel stages at most "
-            f"{FLAT_MAX_CLUSTERS} boxes in shared memory; use closest_tri_two_level"
+            f"closest_tri_flat: {cl.shape[0]} clusters, the flat kernel takes at most "
+            f"{FLAT_MAX_CLUSTERS}; use closest_tri_two_level"
         )
+    _check("closest_tri_flat", o, d, t_in, scl, cl, geo, attr, SC_FLAT)
     if o.device.type == "cpu":
-        return closest_tri_flat_plain(o, d, t_in, tmin, cl, geo, attr)
-    return _launch("flat", o, d, t_in, tmin, cl, geo, attr)
+        return closest_tri_flat_plain(o, d, t_in, tmin, scl, cl, geo, attr)
+    return _launch("flat", o, d, t_in, tmin, scl, cl, geo, attr, SC_FLAT)
 
 
 def closest_tri_two_level(o, d, t_in, tmin, scl, cl, geo, attr, sc_size):
-    """Supercluster then cluster cull -> (t, idx, aux).
+    """Cull over superclusters of sc_size <= MAX_SC_SIZE clusters -> (t, idx, aux).
 
     CUDA tensors launch the two-level kernel; CPU tensors run
     `closest_tri_two_level_plain`.
     """
-    _check("closest_tri_two_level", o, d, t_in, cl, geo, attr, scl)
-    n_sc = cl.shape[0] // sc_size if sc_size > 0 else 0
-    if not 0 < sc_size <= MAX_SC_SIZE or n_sc * sc_size != cl.shape[0] or scl.shape[0] < n_sc:
-        raise ValueError(
-            f"closest_tri_two_level: sc_size {sc_size} must be in [1, {MAX_SC_SIZE}] and "
-            f"divide the {cl.shape[0]} clusters, with one scl row per supercluster "
-            f"(got {scl.shape[0]})"
-        )
+    if not 0 < sc_size <= MAX_SC_SIZE:
+        raise ValueError(f"closest_tri_two_level: sc_size {sc_size} must be in [1, {MAX_SC_SIZE}]")
+    _check("closest_tri_two_level", o, d, t_in, scl, cl, geo, attr, sc_size)
     if o.device.type == "cpu":
         return closest_tri_two_level_plain(o, d, t_in, tmin, scl, cl, geo, attr, sc_size)
-    return _launch("two_level", o, d, t_in, tmin, cl, geo, attr, scl, sc_size)
+    return _launch("two_level", o, d, t_in, tmin, scl, cl, geo, attr, sc_size)
 
 
-def _launch(which, o, d, t_in, tmin, cl, geo, attr, scl=None, sc_size=0):
+_entry: dict[str, object] = {}  # the library's C functions, bound at first use
+_counters: dict[tuple, torch.Tensor] = {}  # the kernels' packet counter of each (device, stream)
+
+
+def _launch(which, o, d, t_in, tmin, scl, cl, geo, attr, sc_size):
     from .. import build
 
-    lib = build.load("tri_kernel")
-    P, I = ctypes.c_void_p, ctypes.c_int
-    outs_args = [P] * 6 + [I, P]  # t, id, ns, u, v, mat, n_rays, stream
-    if which == "flat":
-        fn = lib.tpupt_closest_tri_flat
-        fn.argtypes = [P, P, P, ctypes.c_float, P, I, P, P] + outs_args
-    else:
-        fn = lib.tpupt_closest_tri_two_level
-        fn.argtypes = [P, P, P, ctypes.c_float, P, I, I, P, I, P, P] + outs_args
-    fn.restype = ctypes.c_int
+    if which not in _entry:
+        lib = build.load("tri_kernel")
+        P, I = ctypes.c_void_p, ctypes.c_int
+        tables = [P, I] if which == "flat" else [I, I, P, I]  # cl, n_cl | n_sc, sc_size, cl, n_cl
+        fn = getattr(lib, f"tpupt_closest_tri_{which}")
+        # rays, tmin, scl | tables | geo, attr | t, id, ns, u, v, mat | n_rays, counter, stream
+        fn.argtypes = [P, P, P, ctypes.c_float, P] + tables + [P] * 8 + [I, P, P]
+        fn.restype = ctypes.c_int
+        _entry[which] = fn
     b = o.shape[0]
     f32 = dict(dtype=torch.float32, device=o.device)
     i32 = dict(dtype=torch.int32, device=o.device)
     t, idx, ns = torch.empty(b, **f32), torch.empty(b, **i32), torch.empty((b, 3), **f32)
     u, v, mat = torch.empty(b, **f32), torch.empty(b, **f32), torch.empty(b, **i32)
-    with torch.cuda.device(o.device):
-        stream = torch.cuda.current_stream().cuda_stream
-    rays = [o.data_ptr(), d.data_ptr(), t_in.data_ptr(), float(tmin)]
     if which == "flat":
         tables = [cl.data_ptr(), cl.shape[0]]
     else:
-        tables = [scl.data_ptr(), cl.shape[0] // sc_size, sc_size, cl.data_ptr(), cl.shape[0]]
-    err = fn(
-        *rays, *tables, geo.data_ptr(), attr.data_ptr(),
-        t.data_ptr(), idx.data_ptr(), ns.data_ptr(), u.data_ptr(), v.data_ptr(), mat.data_ptr(),
-        b, stream,
-    )
+        tables = [cl.shape[0] // sc_size, sc_size, cl.data_ptr(), cl.shape[0]]
+    with torch.cuda.device(o.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        # Launches on one stream run in turn, so they share a counter; each zeroes it first.
+        counter = _counters.get((o.device.index, stream))
+        if counter is None:
+            counter = _counters[(o.device.index, stream)] = torch.empty(1, **i32)
+        err = _entry[which](
+            o.data_ptr(), d.data_ptr(), t_in.data_ptr(), float(tmin), scl.data_ptr(), *tables,
+            geo.data_ptr(), attr.data_ptr(), t.data_ptr(), idx.data_ptr(), ns.data_ptr(),
+            u.data_ptr(), v.data_ptr(), mat.data_ptr(), b, counter.data_ptr(), stream,
+        )
     if err != 0:
         raise RuntimeError(f"closest_tri_{which}: CUDA launch failed with error {err}")
     launches[which] += 1
@@ -320,14 +331,28 @@ class _Plain:
             counts.setdefault("tri_tests", 0)
             self.real = (geo[:, 9, :] < BIG_IDF).sum(dim=1)  # real triangles per cluster
 
-    def box_hits(self, rows, box):
-        """rows [R] ray ids, box [R or 1, K, 8] -> hit [R, K] against the seed."""
+    def box_hits(self, rows, box, exists=None):
+        """rows [R] ray ids, box [R or 1, K, 8] -> hit [R, K] against the seed.
+
+        exists [R, K] bool (optional) marks the boxes that are there to test."""
         o, inv = self.o[rows, :, None], self.inv[rows, :, None]
         hit = _slab(box, o[:, 0], o[:, 1], o[:, 2], inv[:, 0], inv[:, 1], inv[:, 2],
                     self.tmin, self.t_in[rows, None])
+        if exists is not None:
+            hit = hit & exists
         if self.counts is not None:
-            self.counts["box_tests"] += hit.numel()
+            self.counts["box_tests"] += hit.numel() if exists is None else int(exists.sum())
         return hit
+
+    def clusters(self, rows, scs, cl, sc_size):
+        """Cull the sc_size cluster boxes of (ray, supercluster) pairs, then test the
+        triangles of the pairs that pass."""
+        step = max(1, PLAIN_ELEMS // sc_size)
+        for lo in range(0, rows.shape[0], step):
+            r, s = rows[lo : lo + step], scs[lo : lo + step]
+            cand = s[:, None] * sc_size + torch.arange(sc_size, device=s.device)
+            pr, pk = torch.nonzero(self.box_hits(r, cl[cand]), as_tuple=True)
+            self.triangles(r[pr], cand[pr, pk])
 
     def triangles(self, rows, clusters):
         """Fold the triangles of (ray, cluster) pairs into each ray's best key."""
@@ -381,37 +406,56 @@ def _ray_chunks(b, k, device):
         yield torch.arange(lo, min(lo + step, b), device=device)
 
 
-def closest_tri_flat_plain(o, d, t_in, tmin, cl, geo, attr, counts=None):
-    """The flat kernel's function in eager PyTorch.
+def top_boxes(scl, n_sc):
+    """Unions of TOP_GROUP consecutive supercluster boxes -> [ceil(n_sc / TOP_GROUP), 8].
 
-    Culls every cluster box against each ray (a chunk of rays at a time), then
-    runs Möller–Trumbore only on the (ray, cluster) pairs that pass. Each ray
-    keeps the smallest (t, slot) key, which is the kernel's sequential strict-<
-    rule over clusters and slots in index order. `counts` (a dict) accumulates
-    box_tests and tri_tests.
+    Pad rows (min x at PAD_BOX) are left out; a group of pad rows gives a pad box.
+    The kernels derive the same boxes in shared memory.
     """
+    n_top = (n_sc + TOP_GROUP - 1) // TOP_GROUP
+    rows = scl.new_full((n_top * TOP_GROUP, 8), PAD_BOX)
+    rows[:n_sc] = scl[:n_sc]
+    rows = rows.view(n_top, TOP_GROUP, 8)
+    real = rows[:, :, 0:1] < PAD_BOX
+    lo = torch.where(real, rows[:, :, 0:3], PAD_BOX).amin(dim=1)
+    hi = torch.where(real, rows[:, :, 3:6], -PAD_BOX).amax(dim=1)
+    hi = torch.where(hi[:, 0:1] < lo[:, 0:1], PAD_BOX, hi)
+    return torch.cat([lo, hi, torch.zeros_like(lo[:, :2])], dim=1)
+
+
+def _cull_plain(o, d, t_in, tmin, scl, cl, geo, attr, sc_size, counts):
+    """Both kernels' function in eager PyTorch: top boxes, then the TOP_GROUP
+    superclusters of each (ray, top box) pair that passes, then the sc_size clusters
+    of each (ray, supercluster) pair that passes, then Möller–Trumbore on the (ray,
+    cluster) pairs that pass. Each ray keeps the smallest (t, slot) key, which is
+    the kernels' strict-< rule over clusters and slots in index order.
+    """
+    n_sc = cl.shape[0] // sc_size
+    top = top_boxes(scl, n_sc)
     p = _Plain(o, d, t_in, tmin, geo, counts)
-    for rows in _ray_chunks(o.shape[0], cl.shape[0], o.device):
-        r, c = torch.nonzero(p.box_hits(rows, cl[None]), as_tuple=True)
-        p.triangles(rows[r], c)
+    step = max(1, PLAIN_ELEMS // TOP_GROUP)
+    for rows in _ray_chunks(o.shape[0], top.shape[0], o.device):
+        r, g = torch.nonzero(p.box_hits(rows, top[None]), as_tuple=True)
+        r = rows[r]
+        for lo in range(0, r.shape[0], step):
+            rr, gg = r[lo : lo + step], g[lo : lo + step]
+            cand = gg[:, None] * TOP_GROUP + torch.arange(TOP_GROUP, device=o.device)
+            exists = cand < n_sc  # the last group may be short
+            cand = cand.clamp(max=n_sc - 1)
+            pr, pk = torch.nonzero(p.box_hits(rr, scl[cand], exists), as_tuple=True)
+            p.clusters(rr[pr], cand[pr, pk], cl, sc_size)
     return p.result(attr)
+
+
+def closest_tri_flat_plain(o, d, t_in, tmin, scl, cl, geo, attr, counts=None):
+    """The flat kernel's function in eager PyTorch (`_cull_plain` over superclusters
+    of SC_FLAT). `counts` (a dict) accumulates box_tests and tri_tests."""
+    return _cull_plain(o, d, t_in, tmin, scl, cl, geo, attr, SC_FLAT, counts)
 
 
 def closest_tri_two_level_plain(o, d, t_in, tmin, scl, cl, geo, attr, sc_size, counts=None):
-    """The two-level kernel's function in eager PyTorch.
-
-    Culls supercluster boxes, then the sc_size cluster boxes of each (ray,
-    supercluster) pair that passes; a ray tests a cluster's triangles when both
-    its supercluster and cluster boxes pass, as in the kernel.
+    """The two-level kernel's function in eager PyTorch (`_cull_plain` over
+    superclusters of sc_size): a ray tests a cluster's triangles when its top box,
+    its supercluster box and its cluster box all pass, as in the kernel.
     """
-    n_sc = cl.shape[0] // sc_size
-    p = _Plain(o, d, t_in, tmin, geo, counts)
-    for rows in _ray_chunks(o.shape[0], n_sc, o.device):
-        r, s = torch.nonzero(p.box_hits(rows, scl[None, :n_sc]), as_tuple=True)
-        step = max(1, PLAIN_ELEMS // sc_size)
-        for lo in range(0, r.shape[0], step):
-            rr, ss = rows[r[lo : lo + step]], s[lo : lo + step]
-            cand = ss[:, None] * sc_size + torch.arange(sc_size, device=o.device)
-            pr, pk = torch.nonzero(p.box_hits(rr, cl[cand]), as_tuple=True)
-            p.triangles(rr[pr], cand[pr, pk])
-    return p.result(attr)
+    return _cull_plain(o, d, t_in, tmin, scl, cl, geo, attr, sc_size, counts)
