@@ -1,5 +1,5 @@
 """Smoke test of the PyTorch/CUDA port on one GPU: builds the kernels, holds each
-against its plain PyTorch version, drives the main path through three scenes and
+against its plain PyTorch version, drives the main path through four scenes and
 prints the numbers PERF.md quotes.
 
     python3 chip_smoke.py                 # default: one card
@@ -10,10 +10,11 @@ The main path is the forward render (render_image) of:
 - scene 6 (everything_scene), 600 px wide, max_depth 50: 16.6k triangles through
   the flat cluster kernel (K2), spheres and quads through K1;
 - "bigmesh", a 318k-triangle mesh (a 4968-triangle mesh subdivided 3 times),
-  600x600, max_depth 50: the two-level cluster kernel (K3).
-Each kernel is held bit-equal to its plain version on random and camera rays; K2 and
-K3 also on the bounce rays that follow their camera rays' hits, and are timed on
-both batches.
+  600x600, max_depth 50: the two-level cluster kernel (K3);
+- the balls scene (scene 1), 600x337, max_depth 50: 486 spheres through K1 alone.
+Each kernel is held bit-equal to its plain version on random and camera rays and on
+the bounce rays that follow its camera rays' hits, and is timed on both batches: K1
+at its three table shapes (Cornell, scene 6, balls), K2 and K3 at theirs.
 The repository ships no asset files, so the script writes stand-ins for scene 6's
 meshes (bunny.obj, spot.obj, cow.obj: lumpy spheres of the real meshes' triangle
 counts) and its environment map (grace_probe_latlong.hdr: a synthetic sky) to a
@@ -44,10 +45,12 @@ import torch
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
 
-# K1's float operations per ray and table slot, counted from csrc/hit_kernel.cu
-# (adds, multiplies, one divide or sqrt; compares not counted)
+# K1's float operations per ray and table slot, and per ray and box of a tile of spheres,
+# counted from csrc/hit_kernel.cu (adds, multiplies, one divide or sqrt; compares, minima
+# and maxima not counted)
 K1_FLOPS_SPHERE = 28
 K1_FLOPS_QUAD = 49
+K1_FLOPS_BOX = 25
 K1_RAY_BYTES = 7 * 4 + 3 * 4  # o, d, time in; t, kind, idx out
 # K2/K3's float operations per box test and per triangle test, counted from
 # csrc/tri_kernel.cu the same way
@@ -55,7 +58,8 @@ TRI_FLOPS_BOX = 24
 TRI_FLOPS_TRI = 46
 TRI_RAY_BYTES = 7 * 4 + 8 * 4  # o, d, t_in in; t, id, ns xyz, u, v, mat out
 
-SPP = {"cornell": 32, "scene6": 32, "bigmesh": 25}  # bigmesh: bench.py's min(BENCH_SPP, 25)
+# bigmesh: bench.py's min(BENCH_SPP, 25); balls: a short render for K1's launch count there
+SPP = {"cornell": 32, "scene6": 32, "bigmesh": 25, "balls": 8}
 
 
 def log(msg=""):
@@ -239,18 +243,75 @@ def bigmesh_scene(width, spp):
 
 
 def check_k1(hit_kernel, sph, quad, rays, label):
-    """Kernel vs plain on the card -> (mismatching lanes, max |t| error on hits)."""
+    """Kernel vs plain on the card -> (mismatching lanes, max |t| error on hits). The plain
+    version that tests every tile of spheres (no cull) must give the same bits too."""
     o, d, tm = rays
     kt, kk, ki = hit_kernel.closest_sphere_quad(o, d, tm, sph, quad)
     pt, pk, pi = hit_kernel.closest_sphere_quad_plain(o, d, tm, sph, quad)
+    at, ak, ai = hit_kernel.closest_sphere_quad_plain(o, d, tm, sph, quad, cull=False)
     torch.cuda.synchronize()
     bad = (kt.view(torch.int32) != pt.view(torch.int32)) | (kk != pk) | (ki != pi)
     n_bad = int(bad.sum())
+    n_cull = int(((at.view(torch.int32) != pt.view(torch.int32)) | (ak != pk) | (ai != pi)).sum())
     hits = pt < hit_kernel.BIG
     err = float((kt - pt).abs()[hits].max()) if bool(hits.any()) else 0.0
     log(f"K1 vs plain [{label}]: {o.shape[0]} rays, S={sph.shape[1]} Q={quad.shape[1]}, "
-        f"hit share {float(hits.float().mean()):.4f}, mismatching lanes {n_bad}, max |dt| {err}")
-    return n_bad, err
+        f"hit share {float(hits.float().mean()):.4f}, mismatching lanes {n_bad}, max |dt| {err}; "
+        f"plain with the tile cull vs without: {n_cull} lanes differ")
+    return n_bad + n_cull, err
+
+
+def k1_real_slots(sph, quad):
+    """(real spheres, real quads) of tables in the reference layout: a sphere is real when
+    r >= 0, a quad when its normal is not zero; the others are pad rows, which never hit."""
+    return int((sph[6] >= 0).sum()), int((quad[0:3] != 0).any(dim=0).sum())
+
+
+def k1_batches(hit_kernel, sd, cam, dev, seed):
+    """K1's two batches on a scene -> {"camera": rays, "bounce": rays}: the camera rays, and
+    the rays that follow their sphere and quad hits (bounce_rays about the geometric normal
+    of the sphere or quad that K1 itself found; the ray's time is kept)."""
+    o, d, tm = camera_rays(cam, dev)
+    sph, quad = hit_kernel.tables(sd)
+    t, kind, idx = hit_kernel.closest_sphere_quad(o, d, tm, sph, quad)
+    i_s = idx.long().clamp_max(sd.sph_r.shape[0] - 1)
+    i_q = idx.long().clamp_max(sd.quad_d.shape[0] - 1)
+    center = sd.sph_c1[i_s] + (sd.sph_c2[i_s] - sd.sph_c1[i_s]) * tm[:, None]
+    p = o + torch.where(t < 3e38, t, 0.0)[:, None] * d
+    normal = torch.where((kind == 0)[:, None], p - center, sd.quad_n[i_q])
+    no, nd, _ = bounce_rays(o, d, t, normal, seed)
+    return {"camera": (o, d, tm), "bounce": (no, nd, tm)}
+
+
+def time_k1(hit_kernel, shape, batch, sph, quad, rays):
+    """Kernel and plain times of K1 on one batch, and its bound: the (ray, box), (ray, sphere)
+    and (ray, quad) tests that the plain version counts on these rays (it skips the tiles of
+    spheres whose box a ray misses, and the pad rows at the tables' tails), against the bytes.
+    The bound on every real slot (no tile skipped) is given beside it
+    -> dict(ms, plain_ms, bound_ms, bound_by, ...)."""
+    o, d, tm = rays
+    b = o.shape[0]
+    ms = cuda_ms(lambda: hit_kernel.closest_sphere_quad(o, d, tm, sph, quad))
+    plain_ms = cuda_ms(lambda: hit_kernel.closest_sphere_quad_plain(o, d, tm, sph, quad), reps=1, rounds=3)
+    counts = {}
+    t, _, _ = hit_kernel.closest_sphere_quad_plain(o, d, tm, sph, quad, counts=counts)
+    real_s, real_q = k1_real_slots(sph, quad)
+    flops = (counts["box_tests"] * K1_FLOPS_BOX + counts["sphere_tests"] * K1_FLOPS_SPHERE
+             + counts["quad_tests"] * K1_FLOPS_QUAD)
+    nbytes = b * K1_RAY_BYTES + 4 * (7 * real_s + 16 * real_q)
+    bound_ms, bound_by = bound(flops, nbytes)
+    all_ms, all_by = bound(b * (real_s * K1_FLOPS_SPHERE + real_q * K1_FLOPS_QUAD), nbytes)
+    log(f"K1 [{shape}, {batch}] at B={b}, S={sph.shape[1]} ({real_s} real), Q={quad.shape[1]} "
+        f"({real_q} real), hit share {float((t < 3e38).float().mean()):.4f}: kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: {counts['box_tests']} box tests, "
+        f"{counts['sphere_tests']} sphere tests = {counts['sphere_tests'] / max(b * real_s, 1):.4f} of "
+        f"rays x real spheres ({counts['warp_sphere_tests'] / max(b * real_s, 1):.4f} when a warp of "
+        f"32 rays sweeps a tile together), {counts['quad_tests']} quad tests, {flops:.3e} flop = "
+        f"{1e3 * flops / PEAK_F32_FLOPS:.4f} ms, {nbytes:.3e} B = {1e3 * nbytes / PEAK_BYTES_PER_S:.4f} "
+        f"ms); bound on every real slot {all_ms:.4f} ms ({all_by}); no single PyTorch call computes it")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, lanes=b,
+                S=sph.shape[1], Q=quad.shape[1], real_S=real_s, real_Q=real_q,
+                bound_ms_every_real_slot=all_ms, **counts)
 
 
 def tri_args(sd):
@@ -474,20 +535,24 @@ def run(args, dev, hit_kernel, render_image, cornell_box_scene, balls_scene, eve
         raise SystemExit("chip_smoke: the mesh scenes did not route to the flat and two-level kernels")
 
     # ---- every kernel against its plain version on the card ----
-    c_sph, c_quad = hit_kernel.tables(c_compiled.data)
-    bscene_balls, bcam_balls = balls_scene(600, 1)
-    b_sph, b_quad = hit_kernel.tables(bscene_balls.compile(device=dev).data)
+    balls_scene_, balls_cam = balls_scene(600, SPP["balls"])
+    balls = balls_scene_.compile(device=dev)
+    k1_shapes = {  # K1's three table shapes: (compiled scene, camera, box of the random rays)
+        "cornell": (c_compiled, ccam, (0.0, 555.0)),
+        "scene6": (s6, s6cam, (-12.0, 12.0)),
+        "balls": (balls, balls_cam, (-12.0, 12.0)),
+    }
     bad = {"K1": 0, "K2": 0, "K3": 0}
     err = {"K1": 0.0, "K2": 0.0, "K3": 0.0}
-    for label, sph, quad, rays in (
-        ("cornell, random", c_sph, c_quad, random_rays(1 << 20, 1, 0.0, 555.0, dev)),
-        ("cornell, camera", c_sph, c_quad, camera_rays(ccam, dev)),
-        ("balls, random", b_sph, b_quad, random_rays(1 << 20, 2, -12.0, 12.0, dev)),
-        ("balls, camera", b_sph, b_quad, camera_rays(bcam_balls, dev)),
-    ):
-        n, e = check_k1(hit_kernel, sph, quad, rays, label)
-        bad["K1"] += n
-        err["K1"] = max(err["K1"], e)
+    k1_rays = {}
+    for seed, (shape, (compiled, cam, (lo, hi))) in enumerate(k1_shapes.items()):
+        sph, quad = hit_kernel.tables(compiled.data)
+        k1_rays[shape] = k1_batches(hit_kernel, compiled.data, cam, dev, seed + 20)
+        for label, rays in (("random", random_rays(1 << 20, seed + 1, lo, hi, dev)),
+                            *k1_rays[shape].items()):
+            n, e = check_k1(hit_kernel, sph, quad, rays, f"{shape}, {label}")
+            bad["K1"] += n
+            err["K1"] = max(err["K1"], e)
     tri_batches = {}
     for name, sd, cam, seed in (("K2", s6.data, s6cam, 3), ("K3", big.data, bcam, 4)):
         o, d, t = camera_rays(cam, dev)
@@ -506,28 +571,31 @@ def run(args, dev, hit_kernel, render_image, cornell_box_scene, balls_scene, eve
         raise SystemExit(f"chip_smoke: kernels disagree with their plain versions: {bad}")
 
     # ---- timings at the main path's lane counts ----
-    o, d, tm = camera_rays(ccam, dev)
-    b = o.shape[0]
-    k1_ms = cuda_ms(lambda: hit_kernel.closest_sphere_quad(o, d, tm, c_sph, c_quad))
-    k1_plain = cuda_ms(lambda: hit_kernel.closest_sphere_quad_plain(o, d, tm, c_sph, c_quad), reps=5)
-    flops = b * (c_sph.shape[1] * K1_FLOPS_SPHERE + c_quad.shape[1] * K1_FLOPS_QUAD)
-    nbytes = b * K1_RAY_BYTES + 4 * (c_sph.numel() + c_quad.numel())
-    k1_bound, k1_by = bound(flops, nbytes)
-    log(f"K1 at B={b}, S={c_sph.shape[1]}, Q={c_quad.shape[1]}: kernel {k1_ms:.4f} ms, plain "
-        f"{k1_plain:.4f} ms, bound {k1_bound:.4f} ms ({k1_by}: {flops:.3e} flop, {nbytes:.3e} B); "
-        f"no single PyTorch call computes it")
-    timing = {"K1": (k1_ms, k1_plain, k1_bound, k1_by)}
+    k1_times = {}
+    for shape, (compiled, _, _) in k1_shapes.items():
+        sph, quad = hit_kernel.tables(compiled.data)
+        k1_times[shape] = {batch: time_k1(hit_kernel, shape, batch, sph, quad, rays)
+                           for batch, rays in k1_rays[shape].items()}
+    k1 = k1_times["cornell"]["camera"]
+    timing = {"K1": (k1["ms"], k1["plain_ms"], k1["bound_ms"], k1["bound_by"])}
     bounce = {}
     for name, sd in (("K2", s6.data), ("K3", big.data)):
         timing[name] = time_tri(name, sd, "camera", tri_batches[name]["camera"])
         bounce[name] = time_tri(name, sd, "bounce", tri_batches[name]["bounce"])
     kernel_ms = {k: v[0] for k, v in timing.items()}
 
-    # ---- the main path: three renders through render_image ----
+    # ---- the main path: four renders through render_image ----
     m_cornell, _, cl = render("cornell", c_compiled, ccam, ["K1"], kernel_ms)
-    _, _, s6l = render("scene 6 stand-in", s6, s6cam, ["K1", "K2"], kernel_ms)
+    _, _, s6l = render("scene 6 stand-in", s6, s6cam, ["K1", "K2"],
+                       dict(kernel_ms, K1=k1_times["scene6"]["camera"]["ms"]))
     _, _, bl = render("bigmesh stand-in", big, bcam, ["K3"], kernel_ms)
+    _, _, ball = render("balls", balls, balls_cam, ["K1"], dict(kernel_ms, K1=k1_times["balls"]["camera"]["ms"]))
     launches = {"K1": cl["K1"], "K2": s6l["K2"], "K3": bl["K3"]}
+    k1_launches = {"cornell": cl["K1"], "scene6": s6l["K1"], "balls": ball["K1"]}
+    for shape, n in k1_launches.items():  # which shape K1's time above its bound costs the most
+        over = {batch: n * (v["ms"] - v["bound_ms"]) for batch, v in k1_times[shape].items()}
+        log(f"K1 [{shape}]: {n} launches x (ms - bound) = {over['camera']:.3f} ms on camera rays, "
+            f"{over['bounce']:.3f} ms on bounce rays")
 
     # ---- small renders on the card against the same renders on the cpu ----
     m_cpu, se_c = compare_small("cornell", cornell_box_scene, dev)
@@ -542,7 +610,7 @@ def run(args, dev, hit_kernel, render_image, cornell_box_scene, balls_scene, eve
 
     if args.profile:
         for label, build in (("cornell", cornell_box_scene), ("scene6", everything_scene),
-                             ("bigmesh", bigmesh_scene)):
+                             ("bigmesh", bigmesh_scene), ("balls", balls_scene)):
             scene, cam = build(600, 2)
             profile_render(args.profile, label, render_image, scene.compile(device=dev), cam)
 
@@ -562,6 +630,12 @@ def run(args, dev, hit_kernel, render_image, cornell_box_scene, balls_scene, eve
         if k in bounce:  # the same kernel on the rays that follow the camera rays' hits
             b_ms, b_plain, b_bound, _ = bounce[k]
             kernels[-1].update(ms_bounce=b_ms, plain_ms_bounce=b_plain, bound_ms_bounce=b_bound)
+        if k == "K1":  # Cornell's bounce batch, and every table shape with its launches
+            b = k1_times["cornell"]["bounce"]
+            kernels[-1].update(ms_bounce=b["ms"], plain_ms_bounce=b["plain_ms"],
+                               bound_ms_bounce=b["bound_ms"],
+                               shapes={shape: dict(v, launches=k1_launches[shape])
+                                       for shape, v in k1_times.items()})
     return kernels
 
 

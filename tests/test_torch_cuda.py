@@ -40,20 +40,161 @@ def _rays(b, seed, lo, hi, dev):
     return tuple(torch.from_numpy(a).to(dev) for a in (o, d, t))
 
 
-@pytest.mark.parametrize("b", [1, 255, 257, 100_003])
-@pytest.mark.parametrize("which", ["cornell", "balls"])
-def test_kernel_bit_equal_to_plain(cuda, which, b):
-    build, lo, hi = {"cornell": (cornell_box_scene, 0.0, 555.0), "balls": (balls_scene, -12.0, 12.0)}[which]
-    sd = build(16, 4)[0].compile(device=cuda).data
-    sph, quad = hit_kernel.tables(sd)
-    o, d, tm = _rays(b, 11, lo, hi, cuda)
+def _random_tables(n_sph, n_quad, seed, dev, real_sph=True, real_quad=True):
+    """Tables in the reference layout of n_sph moving spheres and n_quad quads scattered in
+    [-10, 10]^3, every 7th row a pad (r = -1, a zero quad); real_sph / real_quad False
+    makes every row of that table a pad."""
+    rng = np.random.default_rng(seed)
+    c1 = rng.uniform(-10, 10, size=(3, n_sph))
+    c2 = c1 + rng.normal(size=(3, n_sph)) * (rng.uniform(size=n_sph) < 0.5)
+    r = rng.uniform(0.2, 1.5, size=(1, n_sph))
+    r[:, ::7] = -1.0
+    if not real_sph:
+        r[:] = -1.0
+    q = rng.uniform(-10, 10, size=(3, n_quad))
+    u, v = rng.normal(size=(2, 3, n_quad)) * 2.0
+    n = np.cross(u, v, axis=0)
+    n_len2 = (n * n).sum(axis=0, keepdims=True)
+    normal, w = n / np.sqrt(n_len2), n / n_len2
+    quad = np.concatenate([normal, q, u, v, w, (normal * q).sum(axis=0, keepdims=True)], axis=0)
+    quad[:, ::7] = 0.0
+    if not real_quad:
+        quad[:] = 0.0
+    sph = np.concatenate([c1, c2, r], axis=0)
+    return tuple(torch.from_numpy(np.ascontiguousarray(a.astype(np.float32))).to(dev) for a in (sph, quad))
+
+
+def _k1_tables(which, dev):
+    """(sph, quad, lo, hi): one of K1's table shapes and the box its random rays start in."""
+    if which in ("cornell", "balls"):
+        build, lo, hi = {"cornell": (cornell_box_scene, 0.0, 555.0), "balls": (balls_scene, -12.0, 12.0)}[which]
+        return (*hit_kernel.tables(build(16, 4)[0].compile(device=dev).data), lo, hi)
+    shape = {"1000x700": (1000, 700, True, True),  # more than one staged tile of each
+             "8x0-real": (8, 8, True, False), "0-realx24": (8, 24, False, True)}[which]
+    return (*_random_tables(shape[0], shape[1], 40, dev, shape[2], shape[3]), -12.0, 12.0)
+
+
+K1_TABLES = ["cornell", "balls", "1000x700", "8x0-real", "0-realx24"]
+SPARSE = ("8x0-real", "0-realx24")  # few primitives in a wide box: few rays hit
+
+
+def _assert_k1_bit_equal(o, d, tm, sph, quad):
+    """One launch of K1 against its plain version -> the plain version's (t, kind, idx)."""
     before = hit_kernel.launches
     got = hit_kernel.closest_sphere_quad(o, d, tm, sph, quad)
     want = hit_kernel.closest_sphere_quad_plain(o, d, tm, sph, quad)
     torch.cuda.synchronize()
-    assert hit_kernel.launches == before + 1
+    assert hit_kernel.launches == before + (1 if o.shape[0] else 0)
     assert torch.equal(got[0].view(torch.int32), want[0].view(torch.int32))
     assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
+    return want
+
+
+@pytest.mark.parametrize("b", [0, 1, 31, 33, 255, 257, 100_003, 2**20 + 1])
+@pytest.mark.parametrize("which", K1_TABLES)
+def test_kernel_bit_equal_to_plain(cuda, which, b):
+    """Random rays, batch sizes around the ragged ends of a warp's and a block's runs."""
+    sph, quad, lo, hi = _k1_tables(which, cuda)
+    o, d, tm = _rays(b, 11, lo, hi, cuda)
+    want = _assert_k1_bit_equal(o, d, tm, sph, quad)
+    if b > 1000:
+        assert (want[0] < 3e38).float().mean() > (0.002 if which in SPARSE else 0.1)
+        assert which != "8x0-real" or not (want[1] == 1).any()
+        assert which != "0-realx24" or (want[1][want[0] < 3e38] == 1).all()
+
+
+@pytest.mark.parametrize("which", K1_TABLES)
+def test_kernel_camera_and_bounce_rays(cuda, which):
+    """Coherent rays (one eye, a 160 x 120 fan, one time per row of the fan) and the rays
+    that leave their hit points in random directions of the normal's hemisphere."""
+    sph, quad, lo, hi = _k1_tables(which, cuda)
+    eye = {"cornell": (278.0, 278.0, -800.0), "balls": (13.0, 2.0, 3.0)}.get(which, (0.0, 3.0, 25.0))
+    at = {"cornell": (278.0, 278.0, 0.0)}.get(which, (0.0, 0.0, 0.0))
+    rng = np.random.default_rng(5)
+    fwd = np.asarray(at) - np.asarray(eye)
+    fwd /= np.linalg.norm(fwd)
+    right = np.cross(fwd, (0.0, 1.0, 0.0))
+    right /= np.linalg.norm(right)
+    up = np.cross(right, fwd)
+    x, y = np.meshgrid(np.linspace(-0.4, 0.4, 160), np.linspace(-0.3, 0.3, 120))
+    d = fwd + x.reshape(-1, 1) * right + y.reshape(-1, 1) * up
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    o = np.broadcast_to(np.asarray(eye), d.shape)
+    tm = np.repeat(rng.uniform(size=120), 160)
+    o, d, tm = (torch.from_numpy(np.ascontiguousarray(a.astype(np.float32))).to(cuda) for a in (o, d, tm))
+    t, kind, idx = _assert_k1_bit_equal(o, d, tm, sph, quad)
+    hit = t < 3e38
+    assert hit.float().mean() > (0.002 if which in SPARSE else 0.2)
+    # bounce: from the hit points, about the geometric normal of what was hit
+    p = o + torch.where(hit, t, 0.0)[:, None] * d
+    i_s, i_q = idx.long().clamp_max(sph.shape[1] - 1), idx.long().clamp_max(quad.shape[1] - 1)
+    centre = sph[0:3, i_s].T + (sph[3:6, i_s] - sph[0:3, i_s]).T * tm[:, None]
+    n = torch.where((kind == 0)[:, None], p - centre, quad[0:3, i_q].T)
+    n = n / n.norm(dim=1, keepdim=True).clamp_min(1e-20)
+    n = torch.where((n * d).sum(dim=1, keepdim=True) > 0, -n, n)
+    nd = torch.from_numpy(rng.normal(size=d.shape).astype(np.float32)).to(cuda)
+    nd = nd / nd.norm(dim=1, keepdim=True)
+    nd = torch.where((nd * n).sum(dim=1, keepdim=True) < 0, -nd, nd)
+    t2, _, _ = _assert_k1_bit_equal(p.contiguous(), nd.contiguous(), tm, sph, quad)
+    assert which in SPARSE or (t2[hit] < 3e38).float().mean() > 0.02
+
+
+@pytest.mark.parametrize("which", K1_TABLES)
+def test_kernel_edge_rays(cuda, which):
+    """NaN and infinite components, times outside [0,1], directions that are not unit or
+    lie along an axis, spread over a batch of ordinary rays so that they share warps."""
+    sph, quad, lo, hi = _k1_tables(which, cuda)
+    o, d, tm = _rays(20_011, 17, lo, hi, cuda)
+    nan, inf = float("nan"), float("inf")
+    for k, (what, col, val) in enumerate([
+        (o, 0, nan), (o, 1, inf), (o, 2, -inf), (d, 0, nan), (d, 1, inf), (d, 2, -inf),
+        (tm, None, nan), (tm, None, inf), (tm, None, -3.0), (tm, None, 2.5), (o, 0, 1e30), (o, 1, -3e38),
+    ]):
+        rows = torch.arange(100 + k, 20_000, 997, device=cuda)
+        if col is None:
+            what[rows] = val
+        else:
+            what[rows, col] = val
+    d[5000:5040] *= torch.linspace(0.5, 2.0, 40, device=cuda)[:, None]
+    d[6000:6006] = torch.tensor([[0.0, 0.0, 1.0], [0.0, -0.0, -1.0], [1.0, 0.0, 0.0], [-0.0, 1.0, 0.0],
+                                 [0.0, 0.0, 0.0], [1e-30, -1.0, 0.0]], device=cuda)
+    want = _assert_k1_bit_equal(o, d, tm, sph, quad)
+    assert (want[0] < 3e38).float().mean() > (0.002 if which in SPARSE else 0.1)
+    assert not torch.isnan(want[0]).any()  # a NaN t is a miss
+
+
+def test_kernel_exact_ties(cuda):
+    """Equal t: the lower index wins and a sphere beats a quad, whatever lane or run of
+    a thread the ray falls into; a pad row between the winners changes nothing."""
+    s = Scene()
+    s.add_quad((-1.0, -1.0, 5.0), (2.0, 0.0, 0.0), (0.0, 2.0, 0.0), Diffuse((0.5, 0.5, 0.5)))
+    s.add_quad((-1.0, -1.0, 5.0), (2.0, 0.0, 0.0), (0.0, 2.0, 0.0), Diffuse((0.5, 0.5, 0.5)))
+    s.add_sphere(1.0, (0.0, 0.0, 6.0), Diffuse((0.5, 0.5, 0.5)))
+    s.add_sphere(1.0, (0.0, 0.0, 6.0), Diffuse((0.5, 0.5, 0.5)))
+    sph, quad = (x.clone() for x in hit_kernel.tables(s.compile(device=cuda).data))
+    rays = torch.tensor([[0.0, 0.0, 0.0, 0.0, 0.0, 1.0],  # sphere 0 and both quads at t = 5
+                         [0.5, 0.5, 0.0, 0.0, 0.0, 1.0],  # both quads at t = 5, spheres behind them
+                         [0.0, 0.0, 0.0, 0.0, 0.0, -1.0]], device=cuda).repeat(211, 1)  # a miss
+    o, d, tm = rays[:, 0:3].contiguous(), rays[:, 3:6].contiguous(), torch.zeros(633, device=cuda)
+    t, kind, idx = _assert_k1_bit_equal(o, d, tm, sph, quad)
+    assert (t[0::3] == 5.0).all() and (kind[0::3] == 0).all() and (idx[0::3] == 0).all()
+    assert (t[1::3] == 5.0).all() and (kind[1::3] == 1).all() and (idx[1::3] == 0).all()
+    assert (t[2::3] == 3e38).all() and (kind[2::3] == 0).all() and (idx[2::3] == 0).all()
+    sph[6, 0] = -1.0  # the first of the two spheres becomes a pad: the second wins the tie
+    quad[:, 0] = 0.0
+    t, kind, idx = _assert_k1_bit_equal(o, d, tm, sph, quad)
+    assert (t[0::3] == 5.0).all() and (kind[0::3] == 0).all() and (idx[0::3] == 1).all()
+    assert (t[1::3] == 5.0).all() and (kind[1::3] == 1).all() and (idx[1::3] == 1).all()
+
+
+def test_kernel_follows_a_table_edited_in_place(cuda):
+    """The packed tables kept with a table are made anew when it changes in place."""
+    sph, quad, lo, hi = _k1_tables("1000x700", cuda)
+    o, d, tm = _rays(10_000, 19, lo, hi, cuda)
+    first = _assert_k1_bit_equal(o, d, tm, sph, quad)
+    sph[6, :] = -1.0
+    second = _assert_k1_bit_equal(o, d, tm, sph, quad)
+    assert (first[1][first[0] < 3e38] == 0).any() and (second[1][second[0] < 3e38] == 1).all()
 
 
 def test_kernel_rejects_mixed_devices(cuda):

@@ -158,3 +158,209 @@ def test_wrapper_argument_checks():
     before = hit_kernel.launches
     hit_kernel.closest_sphere_quad(o, d, tm, sph, quad)
     assert hit_kernel.launches == before  # the plain version is not a launch
+
+
+def _bits(x):
+    return x.contiguous().view(torch.int32)
+
+
+def _assert_same_hits(got, want):
+    for g, w in zip(got, want):
+        assert torch.equal(_bits(g), _bits(w))
+
+
+@pytest.mark.parametrize("name,real", [("cornell", (1, 18)), ("balls", (486, 0))])
+def test_packed_tables_hold_reference_tables(name, real):
+    """The kernel's primitive-major tables hold the numbers of the reference's _tables,
+    row for row up to the last real one."""
+    from tpupt.ops.pallas_hit import _tables as j_tables
+
+    jbuild, tbuild, _, _ = SCENES[name]
+    jsph, jquad = (np.asarray(a) for a in j_tables(jbuild().compile().data))
+    sph, quad = hit_kernel.tables(tbuild().compile(device="cpu").data)
+    np.testing.assert_array_equal(sph.numpy(), jsph)
+    np.testing.assert_array_equal(quad.numpy(), jquad)
+    assert hit_kernel.real_rows(sph, quad) == real
+    sp, qp = (a.numpy() for a in hit_kernel.pack_tables(sph, quad))
+    n_s, n_q = real
+    assert sp.shape == (n_s, hit_kernel.SPH_PACKED) and qp.shape == (n_q, hit_kernel.QUAD_PACKED)
+    np.testing.assert_array_equal(sp[:, 0:3], jsph[0:3, :n_s].T)  # c1
+    np.testing.assert_array_equal(sp[:, 3], jsph[6, :n_s])  # r
+    np.testing.assert_array_equal(qp[:, 0:3], jquad[0:3, :n_q].T)  # n
+    np.testing.assert_array_equal(qp[:, 3], jquad[15, :n_q])  # d
+    np.testing.assert_array_equal(qp[:, 4:16], jquad[3:15, :n_q].T)  # q, u, v, w
+
+
+def test_hoisted_terms_bit_identical_to_inline():
+    """c2 - c1 and r * r in the packed table are the sweep's own float32 operations."""
+    sph, quad = hit_kernel.tables(_crowd().compile(device="cpu").data)
+    sp, _ = hit_kernel.pack_tables(sph, quad)
+    n = sp.shape[0]
+    assert n == 6
+    c1, c2, r = sph[0:3, :n].numpy(), sph[3:6, :n].numpy(), sph[6, :n].numpy()
+    assert (c2 != c1).any()  # the spheres really move
+    np.testing.assert_array_equal(sp[:, 4:7].numpy().view(np.int32), (c2 - c1).T.copy().view(np.int32))
+    np.testing.assert_array_equal(sp[:, 7].numpy().view(np.int32), (r * r).view(np.int32))
+    # the sphere sweep written with the hoisted terms gives the plain version's bits
+    o, d, tm = (torch.from_numpy(a) for a in _rays(500, 21, -8.0, 8.0))
+    want = hit_kernel.closest_sphere_quad_plain(o, d, tm, sph, quad[:, :0])
+    e, r2 = sp[:, 4:7].T[:, None, :], sp[:, 7][None, :]
+    l = sp[:, 0:3].T[:, None, :] + e * tm[None, :, None] - o.T[:, :, None]
+    s = l[0] * d[:, 0:1] + l[1] * d[:, 1:2] + l[2] * d[:, 2:3]
+    l2 = l[0] * l[0] + l[1] * l[1] + l[2] * l[2]
+    d2 = l2 - s * s
+    q = torch.sqrt(torch.clamp(r2 - d2, min=1e-20))
+    t = torch.where(l2 > r2, s - q, s + q)
+    ok = ~(((s < 0.0) & (l2 > r2)) | (d2 > r2)) & (t > 1e-3)
+    got_t, got_i = torch.where(ok, t, BIG).min(dim=1)
+    assert (got_t < BIG).float().mean() > 0.05
+    assert torch.equal(_bits(got_t), _bits(want[0]))
+    assert torch.equal(got_i[got_t < BIG].to(torch.int32), want[2][got_t < BIG])
+
+
+def _crowd():
+    """Six large moving spheres over a ground quad, under a light quad, before a wall quad."""
+    s = TB.Scene()
+    for i in range(6):
+        c = (2.5 * i - 6.0, 1.5, 0.0)
+        s.add_sphere(1.4, c, TB.Diffuse((0.5, 0.4, 0.3)), center2=(c[0], 2.5, 0.5))
+    s.add_quad((-10.0, 0.0, -10.0), (20.0, 0.0, 0.0), (0.0, 0.0, 20.0), TB.Diffuse((0.5, 0.5, 0.5)))
+    s.add_quad((-1.0, 7.0, -1.0), (2.0, 0.0, 0.0), (0.0, 0.0, 2.0), TB.Light((5.0, 5.0, 5.0)), light=True)
+    s.add_quad((-10.0, 0.0, -6.0), (20.0, 0.0, 0.0), (0.0, 9.0, 0.0), TB.Diffuse((0.5, 0.5, 0.5)))
+    return s
+
+
+def _trim_case(name):
+    """(sph, quad, expected real_rows) of a table with pads at the tail and elsewhere."""
+    if name in ("cornell", "balls"):
+        sph, quad = hit_kernel.tables(SCENES[name][1]().compile(device="cpu").data)
+        return sph, quad, {"cornell": (1, 18), "balls": (486, 0)}[name]
+    sph, quad = (x.clone() for x in hit_kernel.tables(_crowd().compile(device="cpu").data))
+    if name == "pad_in_the_middle":
+        sph[6, 2] = -1.0  # a pad sphere between real ones
+        quad[:, 1] = 0.0  # a pad quad before the last real one
+        return sph, quad, (6, 3)
+    if name == "no_real_spheres":
+        sph[6, :] = -1.0
+        return sph, quad, (0, 3)
+    assert name == "no_real_quads"
+    quad[:] = 0.0
+    return sph, quad, (6, 0)
+
+
+@pytest.mark.parametrize(
+    "name", ["cornell", "balls", "pad_in_the_middle", "no_real_spheres", "no_real_quads"]
+)
+def test_plain_on_trimmed_tables_bit_equal(name):
+    """Cutting the tables after the last real row changes no hit: t, kind and idx of the
+    plain version are the same bits, so the kernel may skip the pads at the tail."""
+    sph, quad, real = _trim_case(name)
+    n_s, n_q = hit_kernel.real_rows(sph, quad)
+    assert (n_s, n_q) == real and (n_s < sph.shape[1] or n_q < quad.shape[1])
+    lo, hi = {"cornell": (0.0, 555.0), "balls": (-12.0, 12.0)}.get(name, (-8.0, 8.0))
+    o, d, tm = (torch.from_numpy(a) for a in _rays(3000, 22, lo, hi))
+    want = hit_kernel.closest_sphere_quad_plain(o, d, tm, sph, quad)
+    got = hit_kernel.closest_sphere_quad_plain(
+        o, d, tm, sph[:, :n_s].contiguous(), quad[:, :n_q].contiguous()
+    )
+    assert (want[0] < BIG).float().mean() > 0.04
+    _assert_same_hits(got, want)
+    if name == "pad_in_the_middle":  # the pads hit nothing, the rows after them keep their index
+        assert not ((want[1] == 0) & (want[2] == 2) & (want[0] < BIG)).any()
+        assert not ((want[1] == 1) & (want[2] == 1)).any()
+        assert ((want[1] == 0) & (want[2] == 5)).any() and ((want[1] == 1) & (want[2] == 2)).any()
+    sp, qp = hit_kernel.pack_tables(sph, quad)
+    assert sp.shape == (n_s, 8) and qp.shape == (n_q, 16)
+
+
+def test_packed_tables_follow_an_edit_in_place():
+    """The packed pair kept with a table is made anew after the table changes in place."""
+    sph, quad = (x.clone() for x in hit_kernel.tables(_crowd().compile(device="cpu").data))
+    first = hit_kernel._packed(sph, quad)
+    assert hit_kernel._packed(sph, quad) is first
+    sph[6, 5] = -1.0
+    second = hit_kernel._packed(sph, quad)
+    assert second is not first and second[0].shape[0] == 5
+
+
+@pytest.mark.parametrize("name", ["balls", "moving", "crowd"])
+def test_tile_boxes_contain_their_spheres(name):
+    """A tile's box holds each of its real spheres at every time in [0,1]: the centre as
+    the sweep computes it, c1 + (c2-c1)*time, plus and minus r."""
+    build = {"balls": SCENES["balls"][1], "moving": lambda: _moving(TB), "crowd": _crowd}[name]
+    sph, quad = hit_kernel.tables(build().compile(device="cpu").data)
+    boxes = hit_kernel.sphere_tile_boxes(sph)
+    tile = hit_kernel.CULL_TILE
+    assert boxes.shape == (-(-sph.shape[1] // tile), hit_kernel.BOX_FLOATS)
+    c1, e, r = sph[0:3], sph[3:6] - sph[0:3], sph[6]
+    times = torch.cat([torch.tensor([0.0, 1.0]), torch.from_numpy(_rays(200, 5, 0, 1)[2])])
+    for j in range(sph.shape[1]):
+        lo, hi = boxes[j // tile, 0:3], boxes[j // tile, 4:7]
+        if r[j] < 0:
+            continue
+        c = c1[:, j, None] + e[:, j, None] * times[None, :]
+        assert (c - r[j] >= lo[:, None]).all() and (c + r[j] <= hi[:, None]).all(), j
+    # a tile of pad rows only has a box no ray of the scene reaches
+    n_s, _ = hit_kernel.real_rows(sph, quad)
+    for k in range(-(-n_s // tile), boxes.shape[0]):
+        assert (boxes[k, 0:3] == hit_kernel.PAD_BOX).all() and (boxes[k, 4:7] == hit_kernel.PAD_BOX).all()
+    # centre and half diagonal describe the same box
+    real = boxes[:, 0] < hit_kernel.PAD_BOX
+    np.testing.assert_allclose(boxes[real, 8:11], 0.5 * (boxes[real, 0:3] + boxes[real, 4:7]), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(boxes[real, 11], 0.5 * (boxes[real, 4:7] - boxes[real, 0:3]).norm(dim=1), rtol=1e-5)
+
+
+def _aimed_rays(sph, b, seed):
+    """Rays from around the scene toward points near its real spheres, many of them
+    grazing: a miss distance of 0.9 to 1.1 radii from the centre at a random time."""
+    rng = np.random.default_rng(seed)
+    s = sph.numpy()
+    real = np.nonzero(s[6] >= 0)[0]
+    real = real[s[6, real] < 500.0]  # not the ground sphere
+    j = rng.choice(real, size=b)
+    tm = rng.uniform(size=b).astype(np.float32)
+    c = s[0:3, j].T + (s[3:6, j] - s[0:3, j]).T * tm[:, None]
+    o = (c + rng.normal(size=(b, 3)) * rng.choice([2.0, 15.0, 300.0], size=(b, 1))).astype(np.float32)
+    o[:, 1] = np.abs(o[:, 1])
+    to_c = c - o
+    side = np.cross(to_c, rng.normal(size=(b, 3)))
+    side /= np.linalg.norm(side, axis=1, keepdims=True)
+    target = c + side * (s[6, j] * rng.uniform(0.9, 1.1, size=b))[:, None]
+    d = target - o
+    d = (d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32)
+    return tuple(torch.from_numpy(np.ascontiguousarray(a)) for a in (o, d, tm))
+
+
+@pytest.mark.parametrize("name", ["balls", "cornell", "moving", "crowd"])
+def test_plain_cull_bit_equal_to_no_cull(name):
+    """Skipping the tiles whose widened box a ray misses drops no hit: with and without
+    the cull the plain version gives the same bits, on random rays, on rays that graze
+    spheres from near and far, and on rays that may not cull (time outside [0,1], a
+    direction that is not unit, NaN and infinite components)."""
+    build = {"balls": SCENES["balls"][1], "cornell": SCENES["cornell"][1],
+             "moving": lambda: _moving(TB), "crowd": _crowd}[name]
+    lo, hi = {"balls": (-12.0, 12.0), "cornell": (0.0, 555.0)}.get(name, (-8.0, 8.0))
+    sph, quad = hit_kernel.tables(build().compile(device="cpu").data)
+    o, d, tm = (torch.cat(p) for p in zip(
+        (torch.from_numpy(a) for a in _rays(6000, 31, lo, hi)), _aimed_rays(sph, 6000, 32)))
+    tm[0:40] = torch.linspace(-2.0, 3.0, 40)  # times outside [0,1]: these rays may not cull
+    d[40:80] *= torch.linspace(0.5, 2.0, 40)[:, None]  # directions that are not unit
+    d[80, 0], o[81, 1], tm[82] = float("nan"), float("nan"), float("nan")
+    o[83, 2], d[84, 1], tm[85] = float("inf"), float("-inf"), float("inf")
+    d[86] = torch.tensor([0.0, -1.0, 0.0])  # axis-aligned: two flushed reciprocals
+    o[87] = torch.tensor([1e30, 0.0, 0.0])
+    counts, counts_all = {}, {}
+    got = hit_kernel.closest_sphere_quad_plain(o, d, tm, sph, quad, counts=counts)
+    want = hit_kernel.closest_sphere_quad_plain(o, d, tm, sph, quad, counts=counts_all, cull=False)
+    assert ((want[0] < BIG) & (want[1] == 0)).float().mean() > 0.05  # spheres are hit
+    _assert_same_hits(got, want)
+    n_s, n_q = hit_kernel.real_rows(sph, quad)
+    b = o.shape[0]
+    assert counts_all == dict(box_tests=0, sphere_tests=b * n_s, quad_tests=b * n_q,
+                              warp_sphere_tests=-(-b // 32) * 32 * n_s)
+    assert counts["sphere_tests"] <= counts["warp_sphere_tests"] <= counts_all["warp_sphere_tests"]
+    tiles = -(-n_s // hit_kernel.CULL_TILE)
+    assert counts["box_tests"] == (b * tiles if tiles > 1 else 0)  # one tile is swept whole
+    assert counts["quad_tests"] == b * n_q and 0 < counts["sphere_tests"] <= b * n_s
+    if name == "balls":  # the cull pays: most (ray, sphere) pairs are skipped
+        assert counts["sphere_tests"] < 0.3 * b * n_s
