@@ -11,7 +11,14 @@ The main path is the forward render (render_image) of:
   the flat cluster kernel (K2), spheres and quads through K1;
 - "bigmesh", a 318k-triangle mesh (a 4968-triangle mesh subdivided 3 times),
   600x600, max_depth 50: the two-level cluster kernel (K3);
-- the balls scene (scene 1), 600x337, max_depth 50: 486 spheres through K1 alone.
+- the balls scene (scene 1), 600x337, max_depth 50: 486 spheres through K1 alone;
+- the environment-map scene (scene 4) with its HDR sky kept in f32 and importance
+  sampled, 600x337, max_depth 50: K1;
+and the gradient path (render_film_grads: the detached estimator, each trip
+checkpointed and replayed in the backward pass) of the Cornell box at bench.py's
+`grads` configuration (128x128, 32 spp, 4 lanes a pixel) and at 600x600 (4 spp),
+K1 launching in every forward trip and again in its replay; the card's gradients
+are held against the CPU's on a small box scene and on a small mesh (K2).
 Each kernel is held bit-equal to its plain version on random and camera rays and on
 the bounce rays that follow its camera rays' hits, and is timed on both batches: K1
 at its three table shapes (Cornell, scene 6, balls), K2 and K3 at theirs.
@@ -19,7 +26,9 @@ The repository ships no asset files, so the script writes stand-ins for scene 6'
 meshes (bunny.obj, spot.obj, cow.obj: lumpy spheres of the real meshes' triangle
 counts) and its environment map (grace_probe_latlong.hdr: a synthetic sky) to a
 temporary directory, points TPUPT_ASSETS at it, and builds the scenes through the
-port's own everything_scene, OBJ parser and .hdr reader.
+port's own everything_scene, OBJ parser and .hdr reader. The environment-map scene
+gets its own stand-in sky of 1024x512 texels (the alias table has as many rows),
+with a small hot sun, in a directory of its own.
 
 Exits non-zero, printing no result, without a CUDA device or outside a checkout
 of the repository. The last line of standard output is
@@ -29,6 +38,7 @@ of the repository. The last line of standard output is
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import os
@@ -58,8 +68,13 @@ TRI_FLOPS_BOX = 24
 TRI_FLOPS_TRI = 46
 TRI_RAY_BYTES = 7 * 4 + 8 * 4  # o, d, t_in in; t, id, ns xyz, u, v, mat out
 
-# bigmesh: bench.py's min(BENCH_SPP, 25); balls: a short render for K1's launch count there
-SPP = {"cornell": 32, "scene6": 32, "bigmesh": 25, "balls": 8}
+# bigmesh: bench.py's min(BENCH_SPP, 25); balls: a short render for K1's launch count there;
+# env: the HDR environment-map scene (bench.py's lights_hdr at min(spp, 100)), cut for time
+SPP = {"cornell": 32, "scene6": 32, "bigmesh": 25, "balls": 8, "env": 8}
+HDR_ENV_WH = (1024, 512)  # the environment-map scene's stand-in sky
+# gradients: bench.py's `grads` configuration, and the full width at fewer samples
+GRADS = {"grads": dict(width=128, spp=32, replicas=4), "grads 600": dict(width=600, spp=4, replicas=None)}
+GRAD_REL_L1 = 2e-2  # card against CPU gradients, per field (tests/test_torch_cuda.py)
 
 
 def log(msg=""):
@@ -217,6 +232,11 @@ def write_stand_in_assets(root):
     }
     _write_hdr(os.path.join(root, "grace_probe_latlong.hdr"))
     return counts
+
+
+def write_hdr_env_assets(root):
+    """The environment-map scene's stand-in sky, HDR_ENV_WH texels."""
+    _write_hdr(os.path.join(root, "grace_probe_latlong.hdr"), *HDR_ENV_WH)
 
 
 def bigmesh_scene(width, spp):
@@ -461,6 +481,131 @@ def small_mesh_scene(width, spp):
 
 
 # ---------------------------------------------------------------------------
+# gradients
+# ---------------------------------------------------------------------------
+
+
+def zero_counts():
+    from tpupt_torch.ops import hit_kernel, tri_kernel
+
+    hit_kernel.launches = 0
+    tri_kernel.launches.update(flat=0, two_level=0)
+
+
+def read_counts():
+    from tpupt_torch.ops import hit_kernel, tri_kernel
+
+    return {"K1": hit_kernel.launches, "K2": tri_kernel.launches["flat"],
+            "K3": tri_kernel.launches["two_level"]}
+
+
+def grad_box_scene(width, spp):
+    """tests/test_grad.py's box (diffuse floor and sphere, a quad light overhead) under a
+    grey sky, max_depth 12."""
+    from tpupt_torch.render.camera import Camera
+    from tpupt_torch.scene.builder import Diffuse, Light, Scene
+
+    s = Scene()
+    floor = Diffuse((0.73, 0.6, 0.5))
+    s.add_quad((-4.0, 0.0, -4.0), (8.0, 0.0, 0.0), (0.0, 0.0, 8.0), floor)
+    s.add_sphere(0.7, (0.0, 0.7, 0.0), floor)
+    s.add_quad((-1.0, 3.0, -1.0), (2.0, 0.0, 0.0), (0.0, 0.0, 2.0), Light((6.0, 5.0, 4.0)), light=True)
+    s.environment = (0.4, 0.5, 0.6)
+    cam = Camera(aspect_ratio=1.0, image_width=width, samples_per_pixel=spp, max_depth=12, vfov=40.0,
+                 look_from=(0.0, 1.0, 3.0), look_at=(0.0, 1.0, 0.0), blur_strength=0.5,
+                 focal_length=3.0, defocus_angle=0.0)
+    return s, cam
+
+
+def grads_run(label, compiled, cam, spp, replicas, reps, warm_up):
+    """render_film_grads: warm-up, then `reps` timed runs, each with the counts zeroed just
+    before and read just after -> the last run's numbers."""
+    from tpupt_torch.render.diff import DIFF_FIELDS, render_film_grads
+
+    if warm_up:
+        render_film_grads(compiled, cam, spp=spp, seed=0, replicas=replicas)
+    torch.cuda.synchronize()
+    for rep in range(reps):
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        t0 = time.perf_counter()
+        mean, grads, st = render_film_grads(compiled, cam, spp=spp, seed=0, replicas=replicas,
+                                            return_stats=True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        fin = float(torch.isfinite(mean).all(dim=-1).float().mean())
+        grads_finite = {k: bool(torch.isfinite(grads[k]).all()) for k in DIFF_FIELDS}
+        out = dict(
+            width=cam.image_width, height=cam.image_height, spp=spp, max_depth=cam.max_depth,
+            lanes=st.lanes, wall_s=wall, rays=st.rays, rays_per_s=st.rays / wall, trips=st.trips,
+            forward_s=st.forward_s, backward_s=st.backward_s,
+            forward_ms_per_trip=1e3 * st.forward_s / max(st.trips, 1),
+            backward_ms_per_trip=1e3 * st.backward_s / max(st.trips, 1),
+            launches_forward=st.launches_forward, launches_replay=st.launches_backward,
+            peak_gib=peak, film_finite_share=fin, grads_finite=all(grads_finite.values()),
+            grad_abs_sum={k: float(grads[k].abs().sum()) for k in DIFF_FIELDS},
+        )
+        log(f"grads [{label}] run {rep + 1}/{reps}: {cam.image_width}x{cam.image_height} {spp} spp "
+            f"max_depth {cam.max_depth}, {st.lanes} lanes: {wall:.3f} s, {st.rays} forward rays, "
+            f"{out['rays_per_s']:.4e} rays/s fwd+bwd, {st.trips} trips, forward {st.forward_s:.3f} s "
+            f"({out['forward_ms_per_trip']:.3f} ms a trip), backward {st.backward_s:.3f} s "
+            f"({out['backward_ms_per_trip']:.3f} ms a trip), K1 launches {st.launches_forward['K1']} "
+            f"forward + {st.launches_backward['K1']} in the replays, peak memory {peak:.3f} GiB, film "
+            f"finite share {fin:.6f}, gradients finite {grads_finite}")
+    if counts["K1"] == 0 or counts["K1"] != st.launches_forward["K1"] + st.launches_backward["K1"]:
+        raise SystemExit(f"chip_smoke: the {label} gradient run launched K1 {counts['K1']} times")
+    if st.launches_forward["K1"] != st.trips or st.launches_backward["K1"] != st.trips:
+        raise SystemExit(f"chip_smoke: {label}: K1 must launch once a trip forward and once in its replay")
+    if fin < 1.0 or not out["grads_finite"] or mean.shape != (cam.image_height, cam.image_width, 3):
+        raise SystemExit(f"chip_smoke: the {label} gradient run is not finite: film {fin}, {grads_finite}")
+    if not out["grad_abs_sum"]["mat_params"] > 0.0 or not out["grad_abs_sum"]["tex_rgb"] > 0.0:
+        raise SystemExit(f"chip_smoke: the {label} gradients are zero")
+    return out
+
+
+def compare_grads(label, build, dev, kernel):
+    """render_film_grads on the card against the CPU (plain kernels) -> numbers. Fails
+    unless every gradient field is within GRAD_REL_L1 (relative L1) and 95% of the
+    image's pixels within rtol 1e-3 / atol 1e-4."""
+    from tpupt_torch.render.diff import render_film_grads
+
+    scene, cam = build()
+    m_cpu, g_cpu = render_film_grads(scene.compile(device="cpu"), cam, seed=0)
+    zero_counts()
+    m_gpu, g_gpu, st = render_film_grads(scene.compile(device=dev), cam, seed=0, return_stats=True)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    close = float(np.isclose(m_gpu.cpu().numpy(), m_cpu.numpy(), rtol=1e-3, atol=1e-4).all(-1).mean())
+    errs = {k: float((g_gpu[k].cpu() - ref).abs().sum() / ref.abs().sum().clamp_min(1e-30))
+            for k, ref in g_cpu.items()}
+    finite = all(bool(torch.isfinite(g).all()) for g in g_gpu.values())
+    log(f"grads [{label}] {cam.image_width}x{cam.image_height} {cam.samples_per_pixel} spp max_depth "
+        f"{cam.max_depth}, cuda vs cpu: {close:.4f} of pixels within rtol 1e-3 / atol 1e-4; relative L1 "
+        f"error by field {errs} (limit {GRAD_REL_L1}); {kernel} launches {st.launches_forward[kernel]} "
+        f"forward + {st.launches_backward[kernel]} in the replays ({st.trips} trips)")
+    if counts[kernel] == 0 or st.launches_backward[kernel] != st.launches_forward[kernel]:
+        raise SystemExit(f"chip_smoke: the {label} gradient run did not launch {kernel} in every trip")
+    if close < 0.95 or not finite or any(e > GRAD_REL_L1 for e in errs.values()):
+        raise SystemExit(f"chip_smoke: the {label} gradients on the card disagree with the cpu's")
+    return dict(close=close, rel_l1=errs, launches_forward=st.launches_forward,
+                launches_replay=st.launches_backward, trips=st.trips)
+
+
+@contextlib.contextmanager
+def assets_in(path):
+    """TPUPT_ASSETS pointed at `path` inside the block (a scene resolves its files when
+    it is built)."""
+    old = os.environ["TPUPT_ASSETS"]
+    os.environ["TPUPT_ASSETS"] = path
+    try:
+        yield
+    finally:
+        os.environ["TPUPT_ASSETS"] = old
+
+
+# ---------------------------------------------------------------------------
 
 
 def main(argv=None) -> int:
@@ -500,17 +645,22 @@ def main(argv=None) -> int:
         return 1
 
     asset_dir = tempfile.mkdtemp(prefix="tpupt_assets_")
+    env_dir = tempfile.mkdtemp(prefix="tpupt_env_")
     try:
         os.environ["TPUPT_ASSETS"] = asset_dir
         tris = write_stand_in_assets(asset_dir)
+        write_hdr_env_assets(env_dir)
         log(f"stand-in assets (synthetic, not the reference's files) in TPUPT_ASSETS: "
-            f"{tris} triangles, grace_probe_latlong.hdr 128x64")
-        kernels = run(args, dev, hit_kernel, render_image, cornell_box_scene, balls_scene,
-                      everything_scene)
+            f"{tris} triangles, grace_probe_latlong.hdr 128x64; for the environment-map scene "
+            f"grace_probe_latlong.hdr {HDR_ENV_WH[0]}x{HDR_ENV_WH[1]}")
+        kernels, grads = run(args, dev, hit_kernel, render_image, cornell_box_scene, balls_scene,
+                             everything_scene, env_dir)
     finally:
         shutil.rmtree(asset_dir, ignore_errors=True)
+        shutil.rmtree(env_dir, ignore_errors=True)
 
     log(f"total {time.perf_counter() - t_start:.1f} s")
+    log(json.dumps({"grads": grads}))
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
@@ -518,8 +668,14 @@ def main(argv=None) -> int:
     return 0
 
 
-def run(args, dev, hit_kernel, render_image, cornell_box_scene, balls_scene, everything_scene):
-    # ---- the three scenes (host set-up: OBJ parse, SAH build, packing) ----
+def run(args, dev, hit_kernel, render_image, cornell_box_scene, balls_scene, everything_scene, env_dir):
+    from tpupt_torch.scenes import environment_map_scene
+
+    def env_build(width, spp):
+        with assets_in(env_dir):
+            return environment_map_scene(width, spp, hdr_env=True)
+
+    # ---- the scenes (host set-up: OBJ parse, SAH build, packing, the env's alias table) ----
     t0 = time.perf_counter()
     cscene, ccam = cornell_box_scene(600, SPP["cornell"])
     c_compiled = cscene.compile(device=dev)
@@ -527,7 +683,12 @@ def run(args, dev, hit_kernel, render_image, cornell_box_scene, balls_scene, eve
     s6 = s6scene.compile(device=dev)
     bscene, bcam = bigmesh_scene(600, SPP["bigmesh"])
     big = bscene.compile(device=dev)
-    log(f"scene set-up {time.perf_counter() - t0:.2f} s: scene 6 stand-in {s6.data.n_tris} triangle "
+    escene, ecam = env_build(600, SPP["env"])
+    env = escene.compile(device=dev)
+    if not (env.data.env_is_hdr and env.has_lights and env.data.env_wh_host == HDR_ENV_WH):
+        raise SystemExit("chip_smoke: the environment-map scene did not compile to an HDR env")
+    log(f"scene set-up {time.perf_counter() - t0:.2f} s: environment map {env.data.env_wh_host} texels, "
+        f"{env.data.env_sam.shape[0]} alias rows; scene 6 stand-in {s6.data.n_tris} triangle "
         f"rows, {s6.data.tri_cl.shape[0]} clusters, flat route {s6.data.has_tri_clusters}; bigmesh "
         f"{big.data.n_tris} triangle rows, {big.data.tri_cl.shape[0]} clusters, two-level route "
         f"{big.data.has_tri_clusters_hbm} (superclusters of {big.data.tri_sc_size})")
@@ -537,10 +698,11 @@ def run(args, dev, hit_kernel, render_image, cornell_box_scene, balls_scene, eve
     # ---- every kernel against its plain version on the card ----
     balls_scene_, balls_cam = balls_scene(600, SPP["balls"])
     balls = balls_scene_.compile(device=dev)
-    k1_shapes = {  # K1's three table shapes: (compiled scene, camera, box of the random rays)
+    k1_shapes = {  # K1's four table shapes: (compiled scene, camera, box of the random rays)
         "cornell": (c_compiled, ccam, (0.0, 555.0)),
         "scene6": (s6, s6cam, (-12.0, 12.0)),
         "balls": (balls, balls_cam, (-12.0, 12.0)),
+        "env": (env, ecam, (-20.0, 20.0)),
     }
     bad = {"K1": 0, "K2": 0, "K3": 0}
     err = {"K1": 0.0, "K2": 0.0, "K3": 0.0}
@@ -590,8 +752,10 @@ def run(args, dev, hit_kernel, render_image, cornell_box_scene, balls_scene, eve
                        dict(kernel_ms, K1=k1_times["scene6"]["camera"]["ms"]))
     _, _, bl = render("bigmesh stand-in", big, bcam, ["K3"], kernel_ms)
     _, _, ball = render("balls", balls, balls_cam, ["K1"], dict(kernel_ms, K1=k1_times["balls"]["camera"]["ms"]))
+    m_env, _, el = render("environment map (HDR, importance sampled)", env, ecam, ["K1"],
+                          dict(kernel_ms, K1=k1_times["env"]["camera"]["ms"]))
     launches = {"K1": cl["K1"], "K2": s6l["K2"], "K3": bl["K3"]}
-    k1_launches = {"cornell": cl["K1"], "scene6": s6l["K1"], "balls": ball["K1"]}
+    k1_launches = {"cornell": cl["K1"], "scene6": s6l["K1"], "balls": ball["K1"], "env": el["K1"]}
     for shape, n in k1_launches.items():  # which shape K1's time above its bound costs the most
         over = {batch: n * (v["ms"] - v["bound_ms"]) for batch, v in k1_times[shape].items()}
         log(f"K1 [{shape}]: {n} launches x (ms - bound) = {over['camera']:.3f} ms on camera rays, "
@@ -607,12 +771,33 @@ def run(args, dev, hit_kernel, render_image, cornell_box_scene, balls_scene, eve
         f"{mean_g:.6f} vs {mean_c:.6f} (|diff| {abs(mean_g - mean_c):.6f}, 5-sigma tol {tol:.6f})")
     if abs(fin_g - fin_c) > 0.01 or abs(mean_g - mean_c) > tol:
         raise SystemExit("chip_smoke: the cornell film differs from the cpu render")
+    m_env_cpu, se_ec = compare_small("environment map (HDR, importance sampled)", env_build, dev)
+    fin_g, mean_g, se_g = image_stats(m_env)
+    fin_c, mean_c, _ = image_stats(m_env_cpu)
+    tol = 5.0 * math.sqrt(se_g * se_g + se_ec * se_ec)
+    log(f"environment map 600 px cuda vs 32 px cpu: finite share {fin_g:.6f} vs {fin_c:.6f}, mean "
+        f"radiance {mean_g:.6f} vs {mean_c:.6f} (|diff| {abs(mean_g - mean_c):.6f}, 5-sigma tol {tol:.6f})")
+    if fin_g < 1.0 or abs(mean_g - mean_c) > tol:
+        raise SystemExit("chip_smoke: the environment-map film differs from the cpu render")
+
+    # ---- gradients: render_film_grads through K1 (and K2), forward trips and their replays ----
+    grads = {}
+    for i, (label, cfg) in enumerate(GRADS.items()):
+        gscene, gcam = cornell_box_scene(cfg["width"], cfg["spp"])
+        grads[label] = grads_run(label, gscene.compile(device=dev), gcam, cfg["spp"], cfg["replicas"],
+                                 reps=2 if i == 0 else 1, warm_up=i == 0)
+    grads["box, cuda vs cpu"] = compare_grads("box", lambda: grad_box_scene(16, 8), dev, "K1")
+    grads["mesh, cuda vs cpu"] = compare_grads("mesh (5000 triangles, flat cluster route)",
+                                               lambda: small_mesh_scene(16, 8), dev, "K2")
 
     if args.profile:
         for label, build in (("cornell", cornell_box_scene), ("scene6", everything_scene),
-                             ("bigmesh", bigmesh_scene), ("balls", balls_scene)):
+                             ("bigmesh", bigmesh_scene), ("balls", balls_scene), ("env", env_build)):
             scene, cam = build(600, 2)
             profile_render(args.profile, label, render_image, scene.compile(device=dev), cam)
+        cfg = GRADS["grads"]
+        scene, cam = cornell_box_scene(cfg["width"], cfg["spp"])
+        profile_grads(args.profile, scene.compile(device=dev), cam, cfg["spp"], cfg["replicas"])
 
     meta = {
         "K1": ("K1 closest_sphere_quad", "tpupt_torch/csrc/hit_kernel.cu", "tpupt/ops/pallas_hit.py:35"),
@@ -636,7 +821,65 @@ def run(args, dev, hit_kernel, render_image, cornell_box_scene, balls_scene, eve
                                bound_ms_bounce=b["bound_ms"],
                                shapes={shape: dict(v, launches=k1_launches[shape])
                                        for shape, v in k1_times.items()})
-    return kernels
+        # launches on each path: renders, and gradient runs' forward trips and replays
+        paths = dict(k1_launches) if k == "K1" else {"K2": {"scene6": s6l["K2"]}, "K3": {"bigmesh": bl["K3"]}}[k]
+        for label, g in grads.items():
+            if g["launches_forward"][k]:
+                paths[f"{label} forward"] = g["launches_forward"][k]
+                paths[f"{label} replay"] = g["launches_replay"][k]
+        kernels[-1]["launches_by_path"] = paths
+    return kernels, grads
+
+
+def device_kernels(prof):
+    """(device kernel events, their device time in us, their count) of a profile."""
+    kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    return kernels, sum(e.self_device_time_total for e in kernels), sum(e.count for e in kernels)
+
+
+def profile_grads(out_dir, compiled, cam, spp, replicas):
+    """torch.profiler over the gradient path's forward trips alone (trace_film_scan, no
+    graph) and over one render_film_grads run: device busy share, device kernels a trip,
+    and what the backward pass (replay and backward kernels) adds a trip."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpupt_torch.render.diff import render_film_grads, trace_film_scan
+
+    os.makedirs(out_dir, exist_ok=True)
+    render_film_grads(compiled, cam, spp=spp, replicas=replicas)  # warm-up
+    torch.cuda.synchronize()
+    npix, k = cam.image_width * cam.image_height, spp // replicas
+    pix = torch.arange(npix, dtype=torch.int32, device=compiled.data.device).repeat(replicas)
+    sample0 = torch.repeat_interleave(torch.arange(replicas, dtype=torch.int32, device=pix.device) * k, npix)
+    counts = {}
+    for phase in ("forward", "forward+backward"):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            if phase == "forward":  # the same trips without a graph: nothing saved, nothing replayed
+                stats = {}
+                trace_film_scan(compiled.data, cam.init(pix.device), pix, pix // cam.image_width,
+                                pix % cam.image_width, sample0, spp, 0, k, cam.max_depth,
+                                compiled.has_lights, stats=stats)
+                trips = stats["trips"]
+            else:
+                _, _, st = render_film_grads(compiled, cam, spp=spp, replicas=replicas,
+                                             return_stats=True)
+                trips = st.trips
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        kernels, dev_us, n = device_kernels(prof)
+        counts[phase] = n
+        path = os.path.join(out_dir, f"grads_profile_{phase.replace('+', '_')}.txt")
+        with open(path, "w") as f:
+            f.write(prof.key_averages().table(sort_by="cuda_time_total", row_limit=40))
+        top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:5]
+        log(f"profile grads [{phase}] {cam.image_width}x{cam.image_height} {spp} spp (under the "
+            f"profiler): wall {wall:.3f} s, {trips} trips, device kernel time {dev_us / 1e3:.3f} ms "
+            f"({100 * dev_us / 1e6 / wall:.2f}% busy), {n} device kernels ({n / max(trips, 1):.0f} a "
+            f"trip); top: " + "; ".join(f"{e.key[:60]} {e.self_device_time_total / 1e3:.3f} ms" for e in top)
+            + f"; table in {path}")
+    log(f"profile grads: the backward pass adds {(counts['forward+backward'] - counts['forward']) / max(trips, 1):.0f} "
+        f"device kernels a trip (its replay of the forward trip included)")
 
 
 def profile_render(out_dir, label, render_image, compiled, cam):

@@ -372,3 +372,103 @@ def test_small_mesh_render_matches_cpu(cuda):
     close = np.isclose(m_gpu, m_cpu, rtol=1e-3, atol=1e-4, equal_nan=True).all(-1).mean()
     assert close >= 0.95
     np.testing.assert_allclose(np.nanmean(m_gpu), np.nanmean(m_cpu), rtol=1e-2)
+
+
+# ---- gradients (render/diff.py): the kernels inside autograd and its replays ----
+
+
+def _grad_box_scene():
+    s = Scene()
+    floor = Diffuse((0.73, 0.6, 0.5))
+    s.add_quad((-4.0, 0.0, -4.0), (8.0, 0.0, 0.0), (0.0, 0.0, 8.0), floor)
+    s.add_sphere(0.7, (0.0, 0.7, 0.0), floor)
+    s.add_quad((-1.0, 3.0, -1.0), (2.0, 0.0, 0.0), (0.0, 0.0, 2.0), Light((6.0, 5.0, 4.0)), light=True)
+    s.environment = (0.4, 0.5, 0.6)
+    cam = Camera(aspect_ratio=1.0, image_width=16, samples_per_pixel=8, max_depth=12, vfov=40.0,
+                 look_from=(0.0, 1.0, 3.0), look_at=(0.0, 1.0, 0.0), blur_strength=0.5,
+                 focal_length=3.0, defocus_angle=0.0)
+    return s, cam
+
+
+@pytest.mark.parametrize("which", ["box", "mesh"])
+def test_grads_match_cpu(cuda, which):
+    """render_film_grads on the card against the CPU (plain kernels): per field a
+    relative L1 error of at most 2e-2 (an ulp of the card's transcendentals flips a
+    rare path, and the gathers' backward adds with atomics on the card), and the
+    image on at least 95% of pixels within rtol 1e-3 / atol 1e-4."""
+    from tpupt_torch.render.diff import render_film_grads
+
+    scene, cam = _grad_box_scene() if which == "box" else _mesh_scene(16, 8)
+    m_cpu, g_cpu = render_film_grads(scene.compile(device="cpu"), cam, seed=0)
+    before = (hit_kernel.launches, tri_kernel.launches["flat"])
+    m_gpu, g_gpu, st = render_film_grads(scene.compile(device=cuda), cam, seed=0, return_stats=True)
+    assert st.launches_forward["K1"] == st.launches_backward["K1"] == st.trips > 0
+    if which == "mesh":
+        assert st.launches_forward["K2"] == st.launches_backward["K2"] == st.trips
+    assert hit_kernel.launches - before[0] == 2 * st.trips
+    close = np.isclose(m_gpu.cpu().numpy(), m_cpu.numpy(), rtol=1e-3, atol=1e-4).all(-1).mean()
+    assert close >= 0.95, close
+    for k, ref in g_cpu.items():
+        got = g_gpu[k].cpu()
+        assert bool(torch.isfinite(got).all()), k
+        err = float((got - ref).abs().sum() / ref.abs().sum().clamp_min(1e-30))
+        assert err <= 2e-2, (k, err)
+
+
+def test_kernels_take_no_gradient_on_the_card(cuda):
+    sd = cornell_box_scene(16, 4)[0].compile(device=cuda).data
+    sph, quad = hit_kernel.tables(sd)
+    o, d, tm = _rays(256, 2, 0.0, 555.0, cuda)
+    o.requires_grad_(True)
+    t, kind, idx = hit_kernel.closest_sphere_quad(o, d, tm, sph, quad)
+    assert t.grad_fn is None and not t.requires_grad
+    with pytest.raises(ValueError, match="no gradient"):
+        hit_kernel.closest_sphere_quad(o, d, tm, sph, quad.clone().requires_grad_(True))
+    tables = _cluster_tables(3000, tri_kernel.SC_FLAT, cuda)
+    t_in = torch.full_like(tm, 3e38)
+    kt, _, ka = _tri_call("flat", tables, o, d, t_in, False)
+    assert kt.grad_fn is None and ka["u"].grad_fn is None
+    cl, geo, attr, scl = tables
+    with pytest.raises(ValueError, match="no gradient"):
+        _tri_call("flat", (cl.requires_grad_(True), geo, attr, scl), o, d, t_in, False)
+
+
+def recorded_kernel_outputs(monkeypatch, compiled, cam, module=hit_kernel, name="closest_sphere_quad"):
+    """render_film_grads with the outputs of every call of module.name (K1's wrapper by
+    default) recorded -> (forward calls, the backward pass's calls in trip order,
+    GradStats)."""
+    from tpupt_torch.render.diff import render_film_grads
+
+    calls = []
+    wrapped = getattr(module, name)
+
+    def spy(*args, **kwargs):
+        out = wrapped(*args, **kwargs)
+        tensors = (*out[:2], *out[2].values()) if isinstance(out[2], dict) else out
+        calls.append(tuple(x.clone() for x in tensors))
+        return out
+
+    monkeypatch.setattr(module, name, spy)
+    _, grads, st = render_film_grads(compiled, cam, spp=4, replicas=2, return_stats=True)
+    assert all(bool(torch.isfinite(g).all()) for g in grads.values())
+    n = len(calls) // 2
+    return calls[:n], calls[n:][::-1], st
+
+
+@pytest.mark.parametrize("which", ["K1", "K2"])
+def test_checkpoint_replay_bits_equal_on_the_card(cuda, monkeypatch, which):
+    """A kernel's outputs in each forward trip and in its replay in the backward pass are
+    the same bits (K1 is deterministic; K2 zeroes its packet counter at every launch),
+    and it launches once for each."""
+    if which == "K1":
+        scene, cam = cornell_box_scene(16, 4)
+        cam.max_depth = 12
+        spy = dict(module=hit_kernel, name="closest_sphere_quad")
+    else:
+        scene, cam = _mesh_scene(16, 4)
+        spy = dict(module=tri_kernel, name="closest_tri")
+    fwd, replay, st = recorded_kernel_outputs(monkeypatch, scene.compile(device=cuda), cam, **spy)
+    assert len(fwd) == len(replay) == st.trips == st.launches_forward[which] == st.launches_backward[which]
+    for a, b in zip(fwd, replay):
+        for x, y in zip(a, b):
+            assert torch.equal(x.view(torch.int32), y.view(torch.int32))

@@ -1,0 +1,25 @@
+"""The port's render_film_grads (the production gradient entry, the reference's
+`grads` bench configuration) against the reference's on the CPU, on the box scene
+and a small Cornell box. Tolerances and their grounds are in test_torch_grad_ref.py:
+per field a relative L1 error of at most 2e-2, and at least 95% of pixels within
+rtol 1e-3 / atol 1e-4.
+"""
+
+import numpy as np
+import pytest
+
+from tpupt.render import diff as JD
+from tpupt_torch.render import diff as TD
+from test_torch_grad_ref import assert_grads_close, configs
+
+
+@pytest.mark.parametrize("name", ["box", "cornell"])
+def test_film_grads_match_reference(name):
+    jc, jcam, tc, tcam = configs(name)
+    jm, jg, jrays = JD.render_film_grads(jc, jcam, spp=4, seed=0, replicas=2, return_stats=True)
+    tm, tg, st = TD.render_film_grads(tc, tcam, spp=4, seed=0, replicas=2, return_stats=True)
+    assert tm.shape == (tcam.image_height, tcam.image_width, 3)
+    close = np.isclose(tm.numpy(), np.asarray(jm), rtol=1e-3, atol=1e-4).all(-1)
+    assert close.mean() >= 0.95, close.mean()
+    assert abs(st.rays - int(jrays)) <= 0.02 * int(jrays) and st.trips > 0
+    assert_grads_close(tg, jg)

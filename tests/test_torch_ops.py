@@ -165,9 +165,10 @@ def test_lights(scenes):
     origin = rng.uniform(-3, 3, (N, 3)).astype(np.float32)
     time = rng.uniform(size=N).astype(np.float32)
     pick, u1, u2 = rng.uniform(size=(3, N)).astype(np.float32)
-    jd, _ = jax.jit(JL.sample_lights)(jsd, *(jnp.asarray(a) for a in (origin, time, pick, u1, u2)))
-    td = TL.sample_lights(tsd, *(_t(a) for a in (origin, time, pick, u1, u2)))
+    jd, je = jax.jit(JL.sample_lights)(jsd, *(jnp.asarray(a) for a in (origin, time, pick, u1, u2)))
+    td, te = TL.sample_lights(tsd, *(_t(a) for a in (origin, time, pick, u1, u2)))
     _close(td.numpy(), jd, share=0.999)
+    assert not te.any() and not np.asarray(je).any()  # no HDR environment member here
     # pdf along the sampled directions (which hit a light) and along random ones
     for dirs in (np.asarray(jd), _unit(rng, N)):
         jp = jax.jit(JL.pdf_lights)(jsd, jnp.asarray(origin), jnp.asarray(dirs), jnp.asarray(time))

@@ -106,7 +106,9 @@ def test_scene_data_from_numpy(tmp_path):
 def test_unported_inputs_raise(tmp_path, monkeypatch):
     s = TB.Scene()
     s.environment = TB.ImageTexture(np.zeros((2, 2, 3), np.uint8), hdr=True)
-    with pytest.raises(NotImplementedError, match="HDR"):
+    assert s.compile(device="cpu").data.env_is_hdr  # the HDR environment is ported
+    s.add_sphere(1.0, (0, 0, 0), TB.Diffuse(TB.ImageTexture(np.zeros((2, 2, 3), np.uint8), hdr=True)))
+    with pytest.raises(NotImplementedError, match="hdr=True"):  # only as the environment
         s.compile(device="cpu")
 
     s = TB.Scene()

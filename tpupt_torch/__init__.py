@@ -7,7 +7,9 @@ names follow the reference so each part has an obvious counterpart:
     scene/     builder API, SceneData, scene compiler, numpy -> SceneData bridge
     ops/       intersection (hand-written CUDA kernels for spheres/quads and
                triangle clusters), SAH build, BSDFs, lights, textures, environment
-    render/    camera, path-regeneration wavefront integrator, render driver
+               (constant, LDR map, or f32 HDR map with importance sampling)
+    render/    camera, path-regeneration wavefront integrator, render driver,
+               gradients through the detached estimator (diff.py)
     io/        OBJ and image input, PNG output
     csrc/      CUDA C++ kernel sources and the C++ host library (OBJ parse,
                SAH build), built at first use by build.py; native.py binds the latter

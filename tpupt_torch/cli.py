@@ -4,11 +4,13 @@ Usage: python -m tpupt_torch.cli -s 3                  # 600 px, 100 spp on cuda
        python -m tpupt_torch.cli -s 3 --width 300 --spp 16 -o out/cornell.png
        python -m tpupt_torch.cli -s 3 --width 32 --spp 4 --device cpu
        TPUPT_ASSETS=/path/to/assets python -m tpupt_torch.cli -s 6   # OBJ meshes, .hdr env
+       TPUPT_ASSETS=/path/to/assets python -m tpupt_torch.cli -s 4 --hdr-env
 """
 
 from __future__ import annotations
 
 import argparse
+import inspect
 import os
 
 
@@ -36,6 +38,12 @@ def main(argv=None):
         action="store_true",
         help="validate every launch's film for NaN/Inf and fail loudly",
     )
+    ap.add_argument(
+        "--hdr-env",
+        action="store_true",
+        help="keep the scene's .hdr environment in float32 and importance-sample it "
+        "(scenes 4, 6 and 7; the reference quantizes it to u8)",
+    )
     ap.add_argument("--device", type=str, default="cuda", help="torch device (default cuda)")
     args = ap.parse_args(argv)
 
@@ -58,7 +66,13 @@ def main(argv=None):
     os.makedirs(os.path.dirname(out_path) or ".", exist_ok=True)
 
     print(f"scene {args.scene} ({name}): {width}px, {spp} spp on {args.device}")
-    scene, camera = build(width, spp)
+    kwargs = {}
+    if args.hdr_env:
+        if "hdr_env" not in inspect.signature(build).parameters:
+            print(f"--hdr-env: scene {args.scene} has no environment map; ignoring")
+        else:
+            kwargs["hdr_env"] = True
+    scene, camera = build(width, spp, **kwargs)
     compiled = scene.compile(device=args.device)
     img, _, stats = render_image(
         compiled,

@@ -13,6 +13,27 @@ from .dtypes import NP_REAL
 
 BIG = float(NP_REAL(3.0e38))  # stand-in for +inf distances (keeps f32 arithmetic finite)
 
+_bounds: dict = {}  # 0-d bound tensors by (value, dtype, device), made once
+
+
+def _bound(x, value):
+    key = (value, x.dtype, x.device)
+    t = _bounds.get(key)
+    if t is None:
+        t = _bounds[key] = torch.tensor(value, dtype=x.dtype, device=x.device)
+    return t
+
+
+def clamp_min(x, lo):
+    """max(x, lo) as the reference computes it, gradient included: at a tie x == lo
+    half the gradient reaches x (torch.clamp would pass all of it)."""
+    return torch.maximum(x, _bound(x, lo))
+
+
+def clip(x, lo, hi):
+    """min(max(x, lo), hi), the reference's clip, with its half gradient at either tie."""
+    return torch.minimum(torch.maximum(x, _bound(x, lo)), _bound(x, hi))
+
 
 def length_sq(a):
     return a[..., 0] * a[..., 0] + a[..., 1] * a[..., 1] + a[..., 2] * a[..., 2]
@@ -26,7 +47,7 @@ def normalize(a, eps=0.0):
     """a / |a|; eps floors the squared length."""
     n2 = length_sq(a)[..., None]
     if eps:
-        n2 = torch.clamp(n2, min=eps)
+        n2 = clamp_min(n2, eps)
     return a / torch.sqrt(n2)
 
 
@@ -83,7 +104,7 @@ def where3(m, a, b):
 def normalize3(a, eps=0.0):
     n2 = dot3(a, a)
     if eps:
-        n2 = torch.clamp(n2, min=max(eps, 1e-24))
+        n2 = clamp_min(n2, max(eps, 1e-24))
     inv = 1.0 / torch.sqrt(n2)
     return scale3(a, inv)
 
@@ -98,7 +119,7 @@ def refract3(i, n, eta):
     """GLSL refract; 0 on total internal reflection. i normalized, eta per-lane [B]."""
     ni = dot3(n, i)
     k = 1.0 - eta * eta * (1.0 - ni * ni)
-    coef = eta * ni + torch.sqrt(torch.clamp(k, min=1e-20))
+    coef = eta * ni + torch.sqrt(clamp_min(k, 1e-20))
     ok = k >= 0.0
     return (
         torch.where(ok, eta * i[0] - coef * n[0], 0.0),
@@ -112,9 +133,9 @@ def _quat_to_z3(n):
     x = n[1]
     y = -n[0]
     w = 1.0 + n[2]
-    norm = torch.sqrt(torch.clamp(x * x + y * y + w * w, min=1e-24))
+    norm = torch.sqrt(clamp_min(x * x + y * y + w * w, 1e-24))
     degenerate = n[2] < -0.99999
-    safe = torch.clamp(norm, min=1e-20)
+    safe = clamp_min(norm, 1e-20)
     qx = torch.where(degenerate, 1.0, x / safe)
     qy = torch.where(degenerate, 0.0, y / safe)
     qw = torch.where(degenerate, 0.0, w / safe)

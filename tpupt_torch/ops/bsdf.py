@@ -74,7 +74,7 @@ def make_shade(sd: "D.SceneData", mat_id, u, v, point, ng, ns, front) -> Shade:
 
 def _etas(sh: Shade, ior):
     """(eta_i, eta_o) by front_face; ior floored at 0.01 for non-glass rows (P_IOR = 0)."""
-    ior = torch.clamp(ior, min=0.01)
+    ior = la.clamp_min(ior, 0.01)
     eta_i = torch.where(sh.front, 1.0, ior)
     eta_o = torch.where(sh.front, ior, 1.0)
     return eta_i, eta_o
@@ -102,7 +102,7 @@ def _vndf_pdf_h(v, h, roughness):
         S.ggx_G1(v, roughness)
         * torch.abs(la.dot3(v, h))
         * S.ggx_D(h, roughness)
-        / torch.clamp(torch.abs(v[2]), min=1e-12)
+        / la.clamp_min(torch.abs(v[2]), 1e-12)
     )
 
 
@@ -142,7 +142,7 @@ def _metal_pdf(ns, rough, v_world, l_world):
     v = la.to_local3(ns, v_world)
     l = la.to_local3(ns, l_world)
     h = la.normalize3(la.add3(v, l), eps=1e-30)
-    jac = 1.0 / torch.clamp(4.0 * torch.abs(la.dot3(l, h)), min=1e-15)
+    jac = 1.0 / la.clamp_min(4.0 * torch.abs(la.dot3(l, h)), 1e-15)
     return _vndf_pdf_h(v, h, rough) * jac
 
 
@@ -155,7 +155,7 @@ def _metal_eval(base, ns, rough, v_world, l_world):
     f = S.fresnel_schlick3(base, la.dot3(l, h))
     lz = torch.abs(l[2])
     vz = torch.abs(v[2])
-    k = lz * (g * d / torch.clamp(4.0 * lz * vz, min=1e-15))
+    k = lz * (g * d / la.clamp_min(4.0 * lz * vz, 1e-15))
     return (k * f[0], k * f[1], k * f[2])
 
 
@@ -194,17 +194,17 @@ def _glass_pdf_eval(sh: Shade, ns, rough, v_world, l_world):
     refr_denom = rd * rd
 
     pdf_h = _vndf_pdf_h(v, h, rough)
-    jac_refl = f / torch.clamp(4.0 * torch.abs(l_dot_h), min=1e-15)
-    jac_refr = (1.0 - f) * (eta_o * eta_o * torch.abs(l_dot_h)) / torch.clamp(refr_denom, min=1e-15)
+    jac_refl = f / la.clamp_min(4.0 * torch.abs(l_dot_h), 1e-15)
+    jac_refr = (1.0 - f) * (eta_o * eta_o * torch.abs(l_dot_h)) / la.clamp_min(refr_denom, 1e-15)
     pdf = pdf_h * torch.where(reflect, jac_refl, jac_refr)
 
     d = S.ggx_D(h, rough)
     g = S.ggx_G(v, l, rough)
     lz = torch.abs(l[2])
     vz = torch.abs(v[2])
-    fac_refl = f * g * d / torch.clamp(4.0 * lz * vz, min=1e-15)
-    term1 = torch.abs((l_dot_h * v_dot_h) / torch.clamp(torch.abs(l[2] * v[2]), min=1e-15))
-    term2 = (eta_o * eta_o) / torch.clamp(refr_denom, min=1e-15)
+    fac_refl = f * g * d / la.clamp_min(4.0 * lz * vz, 1e-15)
+    term1 = torch.abs((l_dot_h * v_dot_h) / la.clamp_min(torch.abs(l[2] * v[2]), 1e-15))
+    term2 = (eta_o * eta_o) / la.clamp_min(refr_denom, 1e-15)
     fac_refr = term1 * term2 * (1.0 - f) * g * d
     ev = torch.where(reflect, fac_refl, fac_refr) * lz
     return pdf, ev  # eval is achromatic (glass.rs:153,160)
@@ -284,7 +284,7 @@ def _principled_pdf(sh: Shade, n, v_world, l_world):
 
     l_dot_h = la.dot3(l, h)
     v_dot_h = la.dot3(v, h)
-    jac_refl = 1.0 / torch.clamp(4.0 * torch.abs(l_dot_h), min=1e-15)
+    jac_refl = 1.0 / la.clamp_min(4.0 * torch.abs(l_dot_h), 1e-15)
 
     pdf_diffuse = torch.abs(l[2]) / PI
     pdf_spec = _vndf_pdf_h(v, h, roughness) * jac_refl
@@ -295,7 +295,7 @@ def _principled_pdf(sh: Shade, n, v_world, l_world):
     jac_glass = torch.where(
         reflect,
         f * jac_refl,
-        (1.0 - f) * (eta_o * eta_o * torch.abs(l_dot_h)) / torch.clamp(refr_denom, min=1e-15),
+        (1.0 - f) * (eta_o * eta_o * torch.abs(l_dot_h)) / la.clamp_min(refr_denom, 1e-15),
     )
     pdf_glass = _vndf_pdf_h(v, h, roughness) * jac_glass
 
@@ -304,7 +304,7 @@ def _principled_pdf(sh: Shade, n, v_world, l_world):
         S.ggx_G1(v, quarter)
         * torch.abs(v_dot_h)
         * S.gtr1_D(torch.abs(l_dot_h), _principled_alpha_g(params))
-        / torch.clamp(torch.abs(v[2]), min=1e-12)
+        / la.clamp_min(torch.abs(v[2]), 1e-12)
     )
     pdf_cc = pdf_cc_h * jac_refl
 
@@ -367,7 +367,7 @@ def _principled_eval(sh: Shade, n, v_world, l_world):
     fresnel = tuple(_lerp(diel_f, metal_f[j], metallic) for j in range(3))
     d_ggx = S.ggx_D(h, roughness)
     g_ggx = S.ggx_G(v, l, roughness)
-    denom4 = torch.clamp(4.0 * torch.abs(lz) * torch.abs(vz), min=1e-15)
+    denom4 = la.clamp_min(4.0 * torch.abs(lz) * torch.abs(vz), 1e-15)
     k_spec = g_ggx * d_ggx / denom4
     spec_rgb = tuple(fresnel[j] * k_spec for j in range(3))
 
@@ -378,7 +378,7 @@ def _principled_eval(sh: Shade, n, v_world, l_world):
     pvz = lz * vz
     pvz = torch.where(torch.abs(pvz) > 1e-12, pvz, torch.where(pvz < 0.0, -1e-12, 1e-12))
     term1 = torch.abs((l_dot_h * v_dot_h) / pvz)
-    term2 = (eta_o * eta_o) / torch.clamp(refr_denom, min=1e-15)
+    term2 = (eta_o * eta_o) / la.clamp_min(refr_denom, 1e-15)
     fac_refr = term1 * term2 * (1.0 - diel_f) * g_ggx * d_ggx
     glass_k = torch.where(reflect, fac_refl, fac_refr)
 

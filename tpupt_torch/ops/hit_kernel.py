@@ -159,6 +159,8 @@ def _check(o, d, time, sph, quad):
             raise ValueError(f"closest_sphere_quad: {name} is on {x.device}, o on {o.device}")
         if not x.is_contiguous():
             raise ValueError(f"closest_sphere_quad: {name} must be contiguous")
+    if sph.requires_grad or quad.requires_grad:
+        raise ValueError("closest_sphere_quad: geometry takes no gradient; sph and quad must not require grad")
     # the kernel's ray indices run up to a block's rays past B
     if b >= 2**31 - 2**25 or sph.shape[1] >= 2**27 or quad.shape[1] >= 2**27:
         raise ValueError("closest_sphere_quad: sizes must fit int32")
@@ -168,8 +170,11 @@ def closest_sphere_quad(o, d, time, sph, quad, tmin=1e-3):
     """Closest sphere/quad hit per ray -> (t [B] f32, kind [B] int32, idx [B] int32).
 
     CUDA tensors launch the kernel; CPU tensors run `closest_sphere_quad_plain`.
+    Either way the outputs carry no gradient: the rays are taken detached, and
+    tables that require grad raise.
     """
     _check(o, d, time, sph, quad)
+    o, d, time = o.detach(), d.detach(), time.detach()
     if o.device.type == "cpu":
         return closest_sphere_quad_plain(o, d, time, sph, quad, tmin)
     if o.device.type != "cuda":

@@ -8,7 +8,9 @@
   which re-intersects its own geometry with interval (0, inf). The sphere uses the
   reference's `2*PI*sqrt(1 - r^2/d^2)` solid angle.
 
-The HDR environment as a light member waits for its port (ROADMAP).
+With an HDR environment (sd.env_is_hdr) the environment is one more member of the
+list, sampled from its alias table (ops/envmap.py): members are picked uniformly
+among the n_lights_real geometry lights plus the environment.
 """
 
 from __future__ import annotations
@@ -25,8 +27,31 @@ TWO_PI = la.f32(2.0 * math.pi)
 
 
 def sample_lights(sd: "D.SceneData", origin, time, u_pick, u1, u2):
-    """Pick a light uniformly and sample a direction toward it -> [B,3] unit dirs."""
+    """Pick a light member uniformly and sample a direction toward it.
+
+    Returns (dir [B,3] unit, is_env [B] bool); is_env marks lanes whose pick was the
+    HDR environment member (the integrator kills those aimed below the shading
+    horizon of an opaque lane).
+    """
+    if sd.env_is_hdr:
+        from .envmap import sample_env_light
+
+        m = sd.n_lights_real + 1
+        pick = torch.clamp((u_pick * m).to(torch.int32), max=m - 1)
+        env_dir = sample_env_light(sd, u1, u2)
+        if sd.n_lights_real == 0:
+            return la.pack3(env_dir), torch.ones(u_pick.shape, dtype=torch.bool, device=u_pick.device)
+        is_env = pick == sd.n_lights_real
+        geom_dir = la.unpack3(_sample_geom_lights(sd, origin, time, pick, u1, u2))
+        return la.pack3(la.where3(is_env, env_dir, geom_dir)), is_env
     li = torch.clamp((u_pick * sd.n_lights).to(torch.int32), max=sd.n_lights - 1)
+    dir_ = _sample_geom_lights(sd, origin, time, li, u1, u2)
+    return dir_, torch.zeros(u_pick.shape, dtype=torch.bool, device=u_pick.device)
+
+
+def _sample_geom_lights(sd: "D.SceneData", origin, time, li, u1, u2):
+    """Sample a direction toward geometry light `li` [B] -> [B,3] unit dirs."""
+    li = torch.clamp(li, max=sd.n_lights - 1)
     rows = take_rows(sd.light_geom, li)  # [B, 10] kind-uniform rows
     kind = rows[..., 9].to(torch.int32)
     ox, oy, oz = la.unpack3(origin)
@@ -37,7 +62,7 @@ def sample_lights(sd: "D.SceneData", origin, time, u_pick, u1, u2):
 
     # sphere: uniform point on the full sphere (sphere.rs:110-121)
     theta = TWO_PI * u1
-    phi = torch.arccos(torch.clamp(2.0 * u2 - 1.0, -1.0, 1.0))
+    phi = torch.arccos(la.clip(2.0 * u2 - 1.0, -1.0, 1.0))
     sp = torch.sin(phi)
     r = cx  # radius slot for spheres
     scx = ax + (bx - ax) * time
@@ -68,11 +93,11 @@ def _sphere_light_pdf(c1, c2, r, o, d, time):
     l2 = lx * lx + ly * ly + lz * lz
     r2 = r * r
     d2 = l2 - s * s
-    q = torch.sqrt(torch.clamp(r2 - d2, min=0.0))
+    q = torch.sqrt(la.clamp_min(r2 - d2, 0.0))
     t = torch.where(l2 > r2, s - q, s + q)
     hit = ~(((s < 0.0) & (l2 > r2)) | (d2 > r2)) & (t > 0.0)
-    solid_angle = TWO_PI * torch.sqrt(torch.clamp(1.0 - r2 / torch.clamp(l2, min=1e-20), min=0.0))
-    return torch.where(hit, 1.0 / torch.clamp(solid_angle, min=1e-20), 0.0)
+    solid_angle = TWO_PI * torch.sqrt(la.clamp_min(1.0 - r2 / la.clamp_min(l2, 1e-20), 0.0))
+    return torch.where(hit, 1.0 / la.clamp_min(solid_angle, 1e-20), 0.0)
 
 
 def _quad_light_pdf(q, u, v, w, nrm, dd, o, d):
@@ -96,7 +121,7 @@ def _quad_light_pdf(q, u, v, w, nrm, dd, o, d):
     ucv = la.cross3(u, v)
     area = torch.sqrt(la.dot3(ucv, ucv))
     cos_theta = torch.abs(nd)
-    pdf = (t * t) / torch.clamp(cos_theta * area, min=1e-20)
+    pdf = (t * t) / la.clamp_min(cos_theta * area, 1e-20)
     return torch.where(hit, pdf, 0.0)
 
 
@@ -123,18 +148,30 @@ def _tri_light_pdf(v0, e1, e2, n0, n1, n2, o, d):
     e1xe2 = la.cross3(e1, e2)
     area = 0.5 * torch.sqrt(la.dot3(e1xe2, e1xe2))
     cos_theta = torch.abs(la.dot3(d, nrm))
-    pdf = (t * t) / torch.clamp(cos_theta * area, min=1e-20)
+    pdf = (t * t) / la.clamp_min(cos_theta * area, 1e-20)
     return torch.where(hit, pdf, 0.0)
 
 
 def pdf_lights(sd: "D.SceneData", origin, direction, time):
-    """Mean per-light pdf (list.rs:86-96) -> [B]."""
+    """Mean per-member pdf (list.rs:86-96), the HDR environment included -> [B]."""
     o = la.unpack3(origin)
     d = la.unpack3(direction)
+    if sd.env_is_hdr:
+        from .envmap import pdf_env_light
+
+        n_geom = sd.n_lights_real
+        total = pdf_env_light(sd, direction)
+        if n_geom:
+            total = total + _sum_geom_light_pdfs(sd, o, d, time, sd.lights_host[:n_geom])
+        return total / float(n_geom + 1)
+    return _sum_geom_light_pdfs(sd, o, d, time, sd.lights_host) / float(sd.n_lights)
+
+
+def _sum_geom_light_pdfs(sd: "D.SceneData", o, d, time, lights):
     total = torch.zeros_like(o[0])
     # the light table is tiny; each light's kind is known on the host, so only
     # its own kind's pdf is evaluated
-    for kind, gi in sd.lights_host:
+    for kind, gi in lights:
         if kind == D.GEOM_SPHERE:
             p = _sphere_light_pdf(
                 tuple(sd.sph_c1[gi]), tuple(sd.sph_c2[gi]), sd.sph_r[gi], o, d, time
@@ -150,4 +187,4 @@ def pdf_lights(sd: "D.SceneData", origin, direction, time):
                 tuple(sd.tri_n0[gi]), tuple(sd.tri_n1[gi]), tuple(sd.tri_n2[gi]), o, d,
             )
         total = total + p
-    return total / float(sd.n_lights)
+    return total

@@ -31,15 +31,15 @@ def cosine_sample_hemisphere(u1, u2):
 
 def ggx_D(h, roughness):
     """sampling.rs:38-43. h is a local 3-tuple."""
-    cos_theta = torch.clamp(h[2], min=0.001)
-    alpha2 = torch.clamp(roughness * roughness, min=0.001)
+    cos_theta = la.clamp_min(h[2], 0.001)
+    alpha2 = la.clamp_min(roughness * roughness, 0.001)
     denom = (alpha2 - 1.0) * cos_theta * cos_theta + 1.0
     return alpha2 / (PI * denom * denom)
 
 
 def ggx_G1(w, roughness):
     """sampling.rs:51-55."""
-    alpha2 = torch.clamp(roughness * roughness, min=0.001)
+    alpha2 = la.clamp_min(roughness * roughness, 0.001)
     cos_theta = torch.abs(w[2])
     return (
         2.0
@@ -70,13 +70,13 @@ def _sample_ggx_vndf(v, a2, e1, e2):
     phi = torch.where(lo, e2 / a * PI, PI + (e2 - a) / (1.0 - a) * PI)
     p1 = r * torch.cos(phi)
     p2 = r * torch.sin(phi) * torch.where(lo, 1.0, vs[2])
-    pz = torch.sqrt(torch.clamp(1.0 - p1 * p1 - p2 * p2, min=0.0))
+    pz = torch.sqrt(la.clamp_min(1.0 - p1 * p1 - p2 * p2, 0.0))
     n = (
         p1 * t1[0] + p2 * t2[0] + pz * vs[0],
         p1 * t1[1] + p2 * t2[1] + pz * vs[1],
         p1 * t1[2] + p2 * t2[2] + pz * vs[2],
     )
-    return la.normalize3((a2 * n[0], a2 * n[1], torch.clamp(n[2], min=0.0)), eps=1e-30)
+    return la.normalize3((a2 * n[0], a2 * n[1], la.clamp_min(n[2], 0.0)), eps=1e-30)
 
 
 def _flip_to_upper(h):
@@ -104,7 +104,7 @@ def gtr1_sample_microfacet_normal(alpha, e1, e2):
     """sampling.rs:127-142 — cos_theta without sqrt, as in the reference."""
     alpha2 = alpha * alpha
     cos_theta = (1.0 - torch.pow(alpha2, 1.0 - e1)) / (1.0 - alpha2)
-    sin_theta = torch.sqrt(torch.clamp(1.0 - cos_theta * cos_theta, min=0.0))
+    sin_theta = torch.sqrt(la.clamp_min(1.0 - cos_theta * cos_theta, 0.0))
     phi = (2.0 * PI) * e2
     h = (sin_theta * torch.cos(phi), sin_theta * torch.sin(phi), cos_theta)
     return _flip_to_upper(h)
@@ -122,13 +122,13 @@ def fresnel_dielectric3(w, h, eta_i, eta_o):
     c = torch.abs(la.dot3(w, h))
     ratio = eta_o / eta_i
     g_squared = ratio * ratio - 1.0 + c * c
-    g = torch.sqrt(torch.clamp(g_squared, min=1e-20))
+    g = torch.sqrt(la.clamp_min(g_squared, 1e-20))
     gmc = g - c
     gpc = g + c
     den = c * gmc + 1.0
     den = torch.where(torch.abs(den) > 1e-12, den, 1e-12)
     x = (c * gpc - 1.0) / den
-    f = 0.5 * (gmc * gmc) / torch.clamp(gpc * gpc, min=1e-18) * (1.0 + x * x)
+    f = 0.5 * (gmc * gmc) / la.clamp_min(gpc * gpc, 1e-18) * (1.0 + x * x)
     return torch.where(g_squared < 0.0, 1.0, f)
 
 
@@ -146,7 +146,7 @@ def fresnel_schlick3(r0, angle):
 
 def schlick_weight(x):
     """bsdf/mod.rs:94-96."""
-    return pow5(torch.clamp(1.0 - x, 0.0, 1.0))
+    return pow5(la.clip(1.0 - x, 0.0, 1.0))
 
 
 def luminance3(c):

@@ -9,14 +9,15 @@ from __future__ import annotations
 
 import torch
 
+from ..core import linalg as la
 from ..scene import data as D
 from .gather import take_rows
 
 
 def _image_lookup(sd, offset, w, h, u, v):
     """Nearest-neighbor atlas lookup (texture.rs:73-91): u clamped, v flipped."""
-    uu = torch.clamp(u, 0.0, 1.0)
-    vv = 1.0 - torch.clamp(v, 0.0, 1.0)
+    uu = la.clip(u, 0.0, 1.0)
+    vv = 1.0 - la.clip(v, 0.0, 1.0)
     # truncating cast like Rust's `as u32`; clamp to the last texel at u == 1
     i = torch.minimum(torch.floor(uu * w.to(u.dtype)).to(torch.int32), w - 1)
     j = torch.minimum(torch.floor(vv * h.to(u.dtype)).to(torch.int32), h - 1)

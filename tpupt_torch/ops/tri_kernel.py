@@ -175,6 +175,9 @@ def _check(name, o, d, t_in, scl, cl, geo, attr, sc_size):
             raise ValueError(f"{name}: {tname} is on {x.device}, o on {o.device}")
         if not x.is_contiguous():
             raise ValueError(f"{name}: {tname} must be contiguous")
+    for tname, x in tensors[3:]:
+        if x.requires_grad:
+            raise ValueError(f"{name}: geometry takes no gradient; {tname} must not require grad")
     if b >= 2**31 or cp * SLOTS >= 2**31:
         raise ValueError(f"{name}: sizes must fit int32")
     if o.device.type not in ("cpu", "cuda"):
@@ -185,6 +188,8 @@ def closest_tri_flat(o, d, t_in, tmin, scl, cl, geo, attr):
     """Cull over at most FLAT_MAX_CLUSTERS clusters in superclusters of SC_FLAT -> (t, idx, aux).
 
     CUDA tensors launch the flat kernel; CPU tensors run `closest_tri_flat_plain`.
+    The outputs carry no gradient: the rays are taken detached, and tables that
+    require grad raise.
     """
     if cl.dim() == 2 and cl.shape[0] > FLAT_MAX_CLUSTERS:
         raise ValueError(
@@ -192,6 +197,7 @@ def closest_tri_flat(o, d, t_in, tmin, scl, cl, geo, attr):
             f"{FLAT_MAX_CLUSTERS}; use closest_tri_two_level"
         )
     _check("closest_tri_flat", o, d, t_in, scl, cl, geo, attr, SC_FLAT)
+    o, d, t_in = o.detach(), d.detach(), t_in.detach()
     if o.device.type == "cpu":
         return closest_tri_flat_plain(o, d, t_in, tmin, scl, cl, geo, attr)
     return _launch("flat", o, d, t_in, tmin, scl, cl, geo, attr, SC_FLAT)
@@ -201,11 +207,12 @@ def closest_tri_two_level(o, d, t_in, tmin, scl, cl, geo, attr, sc_size):
     """Cull over superclusters of sc_size <= MAX_SC_SIZE clusters -> (t, idx, aux).
 
     CUDA tensors launch the two-level kernel; CPU tensors run
-    `closest_tri_two_level_plain`.
+    `closest_tri_two_level_plain`. No gradient, as closest_tri_flat.
     """
     if not 0 < sc_size <= MAX_SC_SIZE:
         raise ValueError(f"closest_tri_two_level: sc_size {sc_size} must be in [1, {MAX_SC_SIZE}]")
     _check("closest_tri_two_level", o, d, t_in, scl, cl, geo, attr, sc_size)
+    o, d, t_in = o.detach(), d.detach(), t_in.detach()
     if o.device.type == "cpu":
         return closest_tri_two_level_plain(o, d, t_in, tmin, scl, cl, geo, attr, sc_size)
     return _launch("two_level", o, d, t_in, tmin, scl, cl, geo, attr, sc_size)

@@ -19,10 +19,11 @@ one device-to-host sync. Division by a zero pdf is left unguarded like the
 reference (NaNs quantize to black in film.py).
 
 p_light is 0.5 iff the scene has lights (camera.rs:199); without lights the
-light-sampling branch is skipped entirely.
+light-sampling branch is skipped entirely. With an HDR environment the
+environment is a light member, so p_light is 0.5 then too (scene/compile.py).
 
-The detached estimator for gradients (``detach=True`` in the reference) waits
-for the backward slice (ROADMAP).
+``bounce_step(detach=True)`` is the detached estimator of the gradient
+integrators (render/diff.py).
 """
 
 from __future__ import annotations
@@ -36,6 +37,7 @@ from ..ops import lights as light_ops
 from ..ops.bsdf import bsdf_eval, bsdf_pdf, bsdf_sample, make_shade
 from ..ops.envmap import sample_environment
 from ..ops.intersect import closest_hit
+from ..scene import data as D
 from .camera import generate_rays
 
 T_MIN = la.f32(1e-3)  # camera.rs:171
@@ -45,13 +47,24 @@ MIN_BOUNCES = 5  # camera.rs:172
 
 
 def bounce_step(
-    sd, o, d, time, T, L, alive, bounce, pixel_ids, sample_ids, seed, p_light, p_bsdf, has_lights
+    sd, o, d, time, T, L, alive, bounce, pixel_ids, sample_ids, seed, p_light, p_bsdf, has_lights,
+    *, detach=False,
 ):
     """One bounce of the reference estimator (camera.rs:177-226) over a lane batch.
 
     `bounce` is an int or a per-lane int tensor. Returns (o_next, d_next, T, L,
     alive); callers mask o/d updates by `alive`.
+
+    detach=True builds the detached-sampling estimator for reverse-mode gradients:
+    every sampling-derived quantity (the sampled direction, the mixture pdf, the
+    russian-roulette survival probability) is detached, so pixel gradients flow only
+    through the integrand factors (bsdf eval, emission, environment); with the pdf
+    carrying no gradient, E[d(f)/p] = d E[f/p]. It also guards the pdf division: a
+    zero pdf kills the lane instead of making a NaN, which would poison the backward
+    pass even where a mask drops it. detach=False is the forward estimator.
     """
+    sg = torch.Tensor.detach if detach else (lambda x: x)
+
     hit = closest_hit(sd, o, d, time, T_MIN, T_MAX, alive=alive)
 
     # miss -> environment (camera.rs:180-183)
@@ -70,7 +83,7 @@ def bounce_step(
     e1, e2, fresnel_u, _ = rng.uniform4(seed, pixel_ids, sample_ids, ctrl + rng.SLOT_BSDF)
 
     # russian roulette after MIN_BOUNCES (camera.rs:190-196)
-    p = torch.clamp(la.luminance(T), 0.01, 1.0)
+    p = sg(la.clip(la.luminance(T), 0.01, 1.0))
     rr_on = alive & (bounce > MIN_BOUNCES)
     die = rr_on & (rr_u > p)
     alive = alive & ~die
@@ -81,13 +94,24 @@ def bounce_step(
     b_dir, b_ok = bsdf_sample(shade, view, lobe_u, e1, e2, fresnel_u)
     if has_lights:
         lu1, lu2, _, _ = rng.uniform4(seed, pixel_ids, sample_ids, ctrl + rng.SLOT_LIGHT)
-        l_dir = light_ops.sample_lights(sd, hit.point, time, light_pick, lu1, lu2)
+        l_dir, l_is_env = light_ops.sample_lights(sd, hit.point, time, light_pick, lu1, lu2)
+        if sd.env_is_hdr:
+            # the env member aimed below the shading horizon of an opaque lane: the
+            # reference's |cos| eval would transmit, so it counts as a failed sample
+            # (sample() -> None ends the path, camera.rs:209-211) and the estimator
+            # integrates the clamped BRDF. Glass and principled keep such directions.
+            opaque = (shade.mtype == D.MAT_DIFFUSE) | (shade.mtype == D.MAT_METAL)
+            below = la.dot(l_dir, hit.ns) <= 0.0
+            l_ok = ~(l_is_env & opaque & below)
+        else:
+            l_ok = torch.ones_like(b_ok)
         use_light = mis_r < p_light
         new_dir = torch.where(use_light[..., None], l_dir, b_dir)
-        ok = torch.where(use_light, torch.ones_like(b_ok), b_ok)
+        ok = torch.where(use_light, l_ok, b_ok)
     else:
         new_dir = b_dir
         ok = b_ok
+    new_dir = sg(new_dir)
     alive = alive & ok
 
     # mixture pdf + eval (camera.rs:212-216)
@@ -98,7 +122,12 @@ def bounce_step(
     else:
         pdf = p_bsdf * pdf_b
     brdf = bsdf_eval(shade, view, new_dir)
-    atten = brdf / pdf[..., None]  # unguarded, like the reference (camera.rs:216)
+    if detach:
+        pdf = sg(pdf)
+        alive = alive & (pdf > 0.0)
+        atten = brdf / torch.where(pdf > 0.0, pdf, 1.0)[..., None]
+    else:
+        atten = brdf / pdf[..., None]  # unguarded, like the reference (camera.rs:216)
     T = torch.where(alive[..., None], T * atten, T)
 
     # offset next origin along the geometric normal (camera.rs:217-222)
@@ -122,22 +151,36 @@ def trace_radiance(sd, cam, pixel_ids, rows, cols, sample_ids, seed, max_depth, 
     o, d, time = generate_rays(cam, rows, cols, pixel_ids, sample_ids, seed)
     b = pixel_ids.shape[0]
     dev = o.device
-    p_light, p_bsdf = _mis_probs(has_lights)
     T = torch.ones((b, 3), dtype=REAL, device=dev)
     L = torch.zeros((b, 3), dtype=REAL, device=dev)
     alive = torch.ones(b, dtype=torch.bool, device=dev)
     rays = torch.zeros((), dtype=torch.int64, device=dev)
     bounce = 0
     while bounce < max_depth and bool(alive.any()):
-        rays = rays + alive.sum()
-        o_next, d_next, T, L, alive = bounce_step(
-            sd, o, d, time, T, L, alive, bounce, pixel_ids, sample_ids, seed,
-            p_light, p_bsdf, has_lights,
+        o, d, T, L, alive, n_rays = _radiance_step(
+            sd, (time, pixel_ids, sample_ids, seed), o, d, T, L, alive, bounce, has_lights
         )
-        o = torch.where(alive[..., None], o_next, o)
-        d = torch.where(alive[..., None], d_next, d)
+        rays = rays + n_rays
         bounce += 1
     return L, int(rays)
+
+
+def _radiance_step(sd, lane_args, o, d, T, L, alive, bounce, has_lights, detach=False):
+    """One bounce of every lane's single path -> (o, d, T, L, alive, rays traced).
+
+    lane_args is (time, pixel_ids, sample_ids, seed). Also the trip of the
+    differentiable masked scan (render/diff.py), with detach=True.
+    """
+    time, pixel_ids, sample_ids, seed = lane_args
+    p_light, p_bsdf = _mis_probs(has_lights)
+    n_rays = alive.sum()
+    o_next, d_next, T, L, alive = bounce_step(
+        sd, o, d, time, T, L, alive, bounce, pixel_ids, sample_ids, seed,
+        p_light, p_bsdf, has_lights, detach=detach,
+    )
+    o = torch.where(alive[..., None], o_next, o)
+    d = torch.where(alive[..., None], d_next, d)
+    return o, d, T, L, alive, n_rays
 
 
 def compaction_thresholds(b: int, clusters: bool = False) -> list[int]:
@@ -181,27 +224,8 @@ def trace_film_streamed(
     """
     b = pixel_ids.shape[0]
     dev = pixel_ids.device
-    i32 = dict(dtype=torch.int32, device=dev)
     f32 = dict(dtype=REAL, device=dev)
-    d0 = torch.zeros((b, 3), **f32)
-    d0[:, 2] = 1.0
-    s = dict(
-        pix=pixel_ids,
-        row=rows,
-        col=cols,
-        sample0=sample0,
-        lane=torch.arange(b, **i32),
-        o=torch.zeros((b, 3), **f32),
-        d=d0,
-        time=torch.zeros(b, **f32),
-        bounce=torch.zeros(b, **i32),
-        sample=torch.zeros(b, **i32),  # per-lane sample cursor (samples started)
-        cur_sample=torch.zeros(b, **i32),  # sample id of the in-flight path
-        throughput=torch.ones((b, 3), **f32),
-        radiance=torch.zeros((b, 3), **f32),
-        film=torch.zeros((b, 3), **f32),
-        alive=torch.zeros(b, dtype=torch.bool, device=dev),
-    )
+    s = stream_state(pixel_ids, rows, cols, sample0)
     rays = torch.zeros((), dtype=torch.int64, device=dev)
     p_light, p_bsdf = _mis_probs(has_lights)
 
@@ -229,8 +253,40 @@ def trace_film_streamed(
     return bank, int(rays), iterations
 
 
-def _stream_step(s, sd, cam, spp_limit, seed, k, max_depth, has_lights, p_light, p_bsdf):
-    """One wavefront iteration: regenerate exhausted lanes, bounce, flush films."""
+def stream_state(pixel_ids, rows, cols, sample0) -> dict:
+    """The path-regeneration wavefront's state before its first iteration: no lane
+    has a path yet; sample0 [B] is each lane's first sample id."""
+    b = pixel_ids.shape[0]
+    dev = pixel_ids.device
+    i32 = dict(dtype=torch.int32, device=dev)
+    f32 = dict(dtype=REAL, device=dev)
+    d0 = torch.zeros((b, 3), **f32)
+    d0[:, 2] = 1.0
+    return dict(
+        pix=pixel_ids,
+        row=rows,
+        col=cols,
+        sample0=sample0,
+        lane=torch.arange(b, **i32),
+        o=torch.zeros((b, 3), **f32),
+        d=d0,
+        time=torch.zeros(b, **f32),
+        bounce=torch.zeros(b, **i32),
+        sample=torch.zeros(b, **i32),  # per-lane sample cursor (samples started)
+        cur_sample=torch.zeros(b, **i32),  # sample id of the in-flight path
+        throughput=torch.ones((b, 3), **f32),
+        radiance=torch.zeros((b, 3), **f32),
+        film=torch.zeros((b, 3), **f32),
+        alive=torch.zeros(b, dtype=torch.bool, device=dev),
+    )
+
+
+def _stream_step(s, sd, cam, spp_limit, seed, k, max_depth, has_lights, p_light, p_bsdf,
+                 detach=False):
+    """One wavefront iteration: regenerate exhausted lanes, bounce, flush films.
+
+    Also the trip of the differentiable film scan (render/diff.py), with detach=True.
+    """
     o, d, time = s["o"], s["d"], s["time"]
     T, L, film, alive = s["throughput"], s["radiance"], s["film"], s["alive"]
     bounce, sample, cur_sample = s["bounce"], s["sample"], s["cur_sample"]
@@ -255,7 +311,7 @@ def _stream_step(s, sd, cam, spp_limit, seed, k, max_depth, has_lights, p_light,
     # ---- one bounce (identical estimator to trace_radiance) ----
     o_next, d_next, T, L, alive_h = bounce_step(
         sd, o, d, time, T, L, alive, bounce, s["pix"], cur_sample, seed,
-        p_light, p_bsdf, has_lights,
+        p_light, p_bsdf, has_lights, detach=detach,
     )
     bounce = bounce + 1
     # max_depth exit: the reference loop just stops after max_depth iterations

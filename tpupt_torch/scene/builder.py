@@ -50,8 +50,8 @@ class ImageTexture:
     """texture.rs:56-92: nearest-neighbor lookup, u clamped, v flipped.
 
     `path` is an image file (read by io/image.py) or an in-memory uint8 [H,W,3]
-    array. hdr=True (float HDR environment with importance sampling) waits for
-    its port (ROADMAP).
+    array. hdr=True, for Scene.environment only, keeps the map in float32 (an
+    in-memory array is taken as float32) and importance-samples it as a light.
     """
 
     path: object

@@ -13,9 +13,9 @@ table size, for the card, not by backend: at most ``FLAT_MAX_CLUSTERS`` packed
 clusters go to the flat kernel, more (up to ``MAX_CLUSTERS``) to the two-level
 kernel with superclusters of 16, beyond that the dense sweep.
 
-Not carried yet, and raising ``NotImplementedError`` until their ROADMAP items
-land: the HDR environment with importance sampling, and ``bvh=True`` (the
-stackless BVH).
+An environment ``ImageTexture(..., hdr=True)`` is kept in f32 with its alias and
+pdf tables (ops/envmap.py). Not carried yet, and raising ``NotImplementedError``
+until its ROADMAP item lands: ``bvh=True`` (the stackless BVH).
 """
 
 from __future__ import annotations
@@ -26,6 +26,7 @@ from . import builder as B
 from . import data as D
 from ..core.dtypes import NP_REAL
 from ..ops.bvh import build_tri_bvh_sah
+from ..ops.envmap import build_env_tables
 from ..ops.tri_kernel import (
     ATTR_ROWS, FLAT_MAX_CLUSTERS, GEO_ROWS, MAX_CLUSTERS, SC_FLAT, SC_TWO_LEVEL, SLOTS,
     pack_clusters,
@@ -173,8 +174,40 @@ def _emit_geometry(rec, tables, is_light: bool):
         raise TypeError(f"unknown geometry {rec!r}")
 
 
+def _env_tables(src) -> dict:
+    """The HDR environment's tables for SceneData: src is a file path (read by
+    ``io.image.load_image_f32``) or an in-memory [H,W,3] array, taken as float32.
+    src None gives the one-row dummies of a scene without an HDR map."""
+    if src is None:
+        img = np.zeros((1, 3), dtype=NP_REAL)
+        w = h = 1
+        alias = np.zeros(1, dtype=np.int32)
+        prob = np.ones(1, dtype=NP_REAL)
+        pdf = np.full(1, 1.0 / (4.0 * np.pi), dtype=NP_REAL)
+    else:
+        if isinstance(src, np.ndarray):
+            img = np.asarray(src, dtype=NP_REAL)
+        else:
+            from ..io.image import load_image_f32
+
+            img = load_image_f32(src).astype(NP_REAL)
+        h, w = img.shape[:2]
+        alias, prob, pdf = build_env_tables(img)
+        # env_sam holds alias indices as f32: exact only below 2^24
+        assert alias.size < (1 << 24), "env map too large for f32-exact alias rows"
+    return dict(
+        env_img=img.reshape(-1, 3),
+        env_wh=np.array([w, h], dtype=np.int32),
+        env_alias=alias,
+        env_prob=prob,
+        env_pdf=pdf,
+        env_sam=np.stack([prob, alias.astype(NP_REAL), pdf], axis=-1).astype(NP_REAL),
+    )
+
+
 class CompiledScene:
-    """SceneData + whether the scene has geometry lights (p_light = 0.5 iff it does)."""
+    """SceneData + whether MIS samples lights (p_light = 0.5 iff the scene has geometry
+    lights or an HDR environment)."""
 
     def __init__(self, data: D.SceneData, has_lights: bool):
         self.data = data
@@ -255,11 +288,12 @@ def compile_numpy(scene: "B.Scene", bvh: bool | None = None) -> tuple[dict, dict
     f32 = NP_REAL
 
     # environment must be interned before padding defaults
-    if isinstance(scene.environment, B.ImageTexture) and scene.environment.hdr:
-        raise NotImplementedError(
-            "HDR environment with importance sampling: not ported yet (ROADMAP Queue 1)"
-        )
-    if isinstance(scene.environment, B.ImageTexture):
+    env_is_hdr = isinstance(scene.environment, B.ImageTexture) and scene.environment.hdr
+    env = _env_tables(scene.environment.path if env_is_hdr else None)
+    if env_is_hdr:
+        env_tex_id = -1
+        env_color = np.zeros(3, dtype=f32)
+    elif isinstance(scene.environment, B.ImageTexture):
         env_tex_id = _intern_texture(scene.environment, tables)
         env_color = np.zeros(3, dtype=f32)
     else:
@@ -389,6 +423,7 @@ def compile_numpy(scene: "B.Scene", bvh: bool | None = None) -> tuple[dict, dict
         atlas=atlas,
         env_color=env_color,
         env_tex=np.asarray(env_tex_id, dtype=np.int32),
+        **env,
     )
     env_img = env_tex_id >= 0 and int(tex_type[env_tex_id]) == D.TEX_IMAGE
     static = dict(
@@ -400,13 +435,16 @@ def compile_numpy(scene: "B.Scene", bvh: bool | None = None) -> tuple[dict, dict
             int(tex_type[int(rt)]) == D.TEX_SOLID for rt in mat_rough_tex if int(rt) >= 0
         ),
         env_is_map=env_tex_id >= 0,
+        env_is_hdr=env_is_hdr,
         env_map_off=int(tex_img[env_tex_id][0]) if env_img else 0,
         env_map_w=int(tex_img[env_tex_id][1]) if env_img else 0,
         env_map_h=int(tex_img[env_tex_id][2]) if env_img else 0,
         n_lights_real=len(tables["lights"]),
         **cluster_static,
     )
-    return fields, static, has_lights
+    # with importance sampling the environment is a light member, so MIS engages
+    # (p_light = 0.5) even when the geometry lights list is empty
+    return fields, static, has_lights or env_is_hdr
 
 
 def compile_scene(scene: "B.Scene", device=None, bvh: bool | None = None) -> CompiledScene:

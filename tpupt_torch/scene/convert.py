@@ -19,7 +19,6 @@ from . import data as D
 # static flags of the reference's SceneData that select paths the port has not
 # ported yet; a scene that sets any of them cannot be rendered here
 _UNPORTED_FLAGS = (
-    "env_is_hdr",
     "has_tri_bvh",
     "has_tri_mxu",
 )
@@ -57,3 +56,16 @@ def scene_data_from_numpy(fields: dict, static: dict, device=None) -> D.SceneDat
     if "mat_types" in facts:
         facts["mat_types"] = tuple(int(t) for t in facts["mat_types"])
     return D.SceneData(**tensors, **facts)
+
+
+def params_from_numpy(params: dict, device=None) -> dict:
+    """Differentiable parameters as numpy arrays by field name (the reference's
+    ``init_params`` pytree through ``np.asarray``) -> float32 tensors on `device`."""
+    dev = resolve_device(device)
+    return {n: torch.from_numpy(np.array(v, dtype=np.float32, order="C")).to(dev)
+            for n, v in params.items()}
+
+
+def params_to_numpy(params: dict) -> dict:
+    """Parameters or gradients by field name -> float32 numpy arrays."""
+    return {n: v.detach().cpu().numpy() for n, v in params.items()}

@@ -15,9 +15,8 @@ Every table holds at least one row (a degenerate pad entry: negative-radius sphe
 zero quad, zero-area triangle).
 
 Meshes of 64 or more triangles are SAH-ordered and packed into cluster tables
-(``ops/tri_kernel.py`` documents the layout). Not carried yet (ROADMAP): the HDR
-environment's alias tables, and the stackless-BVH and MXU tables of the
-reference's other large-mesh paths.
+(``ops/tri_kernel.py`` documents the layout). Not carried yet (ROADMAP): the
+stackless-BVH and MXU tables of the reference's other large-mesh paths.
 """
 
 from __future__ import annotations
@@ -64,6 +63,7 @@ STATIC_FIELDS = (
     "has_checker",
     "rough_all_solid",
     "env_is_map",
+    "env_is_hdr",
     "env_map_off",
     "env_map_w",
     "env_map_h",
@@ -138,6 +138,18 @@ class SceneData:
     env_color: torch.Tensor  # [3]
     env_tex: torch.Tensor  # [] int32 texture id, -1 = constant color
 
+    # full-precision HDR environment with importance sampling (ops/envmap.py): f32
+    # texels, a Vose alias table over luminance*sin(theta) texel weights and the
+    # solid-angle pdf per texel. One dummy row each when the scene has no HDR map.
+    env_img: torch.Tensor  # [Hw*Ww,3] f32 texels
+    env_wh: torch.Tensor  # [2] int32 (W, H)
+    env_alias: torch.Tensor  # [Hw*Ww] int32 alias targets
+    env_prob: torch.Tensor  # [Hw*Ww] f32 alias acceptance probabilities
+    env_pdf: torch.Tensor  # [Hw*Ww] f32 solid-angle pdf per texel
+    # (prob, alias as f32, pdf) rows: one row gather per alias draw or pdf lookup;
+    # alias indices are exact in f32 below 2^24 (asserted at compile)
+    env_sam: torch.Tensor  # [Hw*Ww,3] f32
+
     # static facts about the scene (plain attributes)
     has_normal_maps: bool = False
     mat_types: tuple = ()  # sorted tuple of MAT_* present in the scene
@@ -145,6 +157,7 @@ class SceneData:
     has_checker: bool = False  # no checker -> texture eval skips the child resolve
     rough_all_solid: bool = False  # every roughness texture is SOLID
     env_is_map: bool = False
+    env_is_hdr: bool = False  # f32 HDR env + importance sampling
     # atlas coordinates of a plain-image env map (env_map_w == 0: generic path)
     env_map_off: int = 0
     env_map_w: int = 0
@@ -162,6 +175,8 @@ class SceneData:
         self.lights_host = tuple(
             zip(self.light_kind.tolist(), self.light_idx.tolist())
         )
+        # env_wh as Python ints, for the same reason
+        self.env_wh_host = tuple(int(x) for x in self.env_wh.tolist())
 
     @property
     def device(self) -> torch.device:

@@ -178,8 +178,8 @@ def environment_map_scene(width: int, spp: int, hdr_env: bool = False):
 
     NOTE: the light quad is added via add_object (main.rs:245), so the lights list is
     empty and MIS degenerates to BSDF-only sampling, exactly as in the reference.
-    hdr_env=True asks for the full-f32 HDR environment with importance sampling,
-    which the port does not carry yet: compiling such a scene raises.
+    hdr_env=True keeps the map in f32 and importance-samples it: the environment
+    joins the MIS light mixture (so MIS engages although the lights list is empty).
     """
     s = Scene()
     s.add_sphere(9.0, (4.0, 2.0, 0.0), Metal((1.0, 1.0, 1.0), 0.001))
