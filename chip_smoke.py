@@ -3,7 +3,7 @@ against its plain PyTorch version, drives the main path through four scenes and
 prints the numbers PERF.md quotes.
 
     python3 chip_smoke.py                 # default: one card
-    python3 chip_smoke.py --profile DIR   # add a torch.profiler pass, tables in DIR
+    python3 chip_smoke.py --profile DIR   # add a torch.profiler pass (renders, grads), tables in DIR
 
 The main path is the forward render (render_image) of:
 - the Cornell box, 600x600, max_depth 50: spheres and quads through K1;
@@ -14,11 +14,22 @@ The main path is the forward render (render_image) of:
 - the balls scene (scene 1), 600x337, max_depth 50: 486 spheres through K1 alone;
 - the environment-map scene (scene 4) with its HDR sky kept in f32 and importance
   sampled, 600x337, max_depth 50: K1;
+- scenes 2 (earth), 5 (BSDF demo) and 7 (normal maps), 600 px wide, max_depth 50, at
+  4 spp: K1, with their JPEG and PNG textures decoded by the port's own readers
+  (the committed stand-ins of tests/torch_data/, each first held bit for bit against
+  its .npy, PIL's decode of it);
 and the gradient path (render_film_grads: the detached estimator, each trip
 checkpointed and replayed in the backward pass) of the Cornell box at bench.py's
 `grads` configuration (128x128, 32 spp, 4 lanes a pixel) and at 600x600 (4 spp),
 K1 launching in every forward trip and again in its replay; the card's gradients
-are held against the CPU's on a small box scene and on a small mesh (K2).
+are held against the CPU's on a small box scene, on a small mesh (K2) and on 60000
+random triangles (K3).
+Then the sharded phases (parallel/, one process a device): render_image(mesh=...) of
+the Cornell box in a world of 1 over NCCL, bit-equal to the render without a mesh;
+two gloo ranks spawned on the one card (NCCL puts no two ranks of a communicator on
+one GPU): Cornell 600x600 at 32 spp and the scene-6 stand-in 600 px at 8 spp against
+one rank, render_grads_sharded of a box against render_grads, and a (1 host x 2
+chips) pod mesh against the flat mesh of 2.
 Each kernel is held bit-equal to its plain version on random and camera rays and on
 the bounce rays that follow its camera rays' hits, and is timed on both batches: K1
 at its three table shapes (Cornell, scene 6, balls), K2 and K3 at theirs.
@@ -43,6 +54,7 @@ import json
 import math
 import os
 import shutil
+import socket
 import subprocess
 import sys
 import tempfile
@@ -70,7 +82,11 @@ TRI_RAY_BYTES = 7 * 4 + 8 * 4  # o, d, t_in in; t, id, ns xyz, u, v, mat out
 
 # bigmesh: bench.py's min(BENCH_SPP, 25); balls: a short render for K1's launch count there;
 # env: the HDR environment-map scene (bench.py's lights_hdr at min(spp, 100)), cut for time
-SPP = {"cornell": 32, "scene6": 32, "bigmesh": 25, "balls": 8, "env": 8}
+SPP = {"cornell": 32, "scene6": 32, "bigmesh": 25, "balls": 8, "env": 8, "textures": 4}
+SHARDED_SPP = {"cornell": 32, "scene6": 8}  # the two-rank phase: the Cornell box and the scene-6 stand-in
+SHARDED_JOIN_S = 420  # a spawned rank's own timeout
+FIXTURES = ("earthmap.jpg", "envmap.jpg", "bricks/color.png", "bricks/normal.png")
+FIXTURE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "torch_data")
 HDR_ENV_WH = (1024, 512)  # the environment-map scene's stand-in sky
 # gradients: bench.py's `grads` configuration, and the full width at fewer samples
 GRADS = {"grads": dict(width=128, spp=32, replicas=4), "grads 600": dict(width=600, spp=4, replicas=None)}
@@ -480,6 +496,25 @@ def small_mesh_scene(width, spp):
     return s, cam
 
 
+def random_mesh_scene(width, spp, n=60_000, seed=2):
+    """n random triangles in a blob (1344 clusters at 60000: the two-level route, K3) under
+    a quad light, max_depth 6."""
+    from tpupt_torch.render.camera import Camera
+    from tpupt_torch.scene.builder import Diffuse, Light, Scene
+
+    rng = np.random.default_rng(seed)
+    pos = (rng.normal(size=(n, 1, 3)) * 1.5 + rng.normal(size=(n, 3, 3)) * 0.15).reshape(-1, 3)
+    s = Scene()
+    s.add_mesh(dict(positions=pos, normals=None, uvs=None, indices=np.arange(3 * n).reshape(n, 3)),
+               Diffuse((0.6, 0.5, 0.4)))
+    s.add_quad((-2.0, 5.0, -2.0), (4.0, 0.0, 0.0), (0.0, 0.0, 4.0), Light((6.0, 6.0, 6.0)), light=True)
+    s.environment = (0.2, 0.25, 0.3)
+    cam = Camera(aspect_ratio=1.0, image_width=width, samples_per_pixel=spp, max_depth=6, vfov=50.0,
+                 look_from=(0.0, 1.0, 8.0), look_at=(0.0, 0.0, 0.0), blur_strength=0.5,
+                 focal_length=8.0, defocus_angle=0.0)
+    return s, cam
+
+
 # ---------------------------------------------------------------------------
 # gradients
 # ---------------------------------------------------------------------------
@@ -593,6 +628,204 @@ def compare_grads(label, build, dev, kernel):
                 launches_replay=st.launches_backward, trips=st.trips)
 
 
+# ---------------------------------------------------------------------------
+# image fixtures and the sharded phases
+# ---------------------------------------------------------------------------
+
+
+def check_image_fixtures(asset_dir):
+    """The port's PNG and JPEG readers on the committed stand-ins, bit for bit against
+    PIL's decode of each (its .npy); then the files go into the asset directory."""
+    from tpupt_torch.io.image import load_image_rgb8
+
+    for name in FIXTURES:
+        src = os.path.join(FIXTURE_DIR, name)
+        t0 = time.perf_counter()
+        got = load_image_rgb8(src)
+        dt = time.perf_counter() - t0
+        want = np.load(os.path.splitext(src)[0] + ".npy")
+        n_bad = int((got != want).sum()) if got.shape == want.shape else -1
+        log(f"decode {name} ({want.shape[1]}x{want.shape[0]}) with the port's reader: {dt * 1e3:.1f} ms, "
+            f"{n_bad} samples differ from PIL's decode")
+        if n_bad:
+            raise SystemExit(f"chip_smoke: the port's decode of {name} differs from PIL's")
+        os.makedirs(os.path.dirname(os.path.join(asset_dir, name)), exist_ok=True)
+        shutil.copy(src, os.path.join(asset_dir, name))
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def nccl_world_of_one(compiled, cam, m_ref, st_ref):
+    """render_image(mesh=make_mesh(1)) in this process, a world of 1 over NCCL: bit-equal to
+    the render without a mesh (m_ref, st_ref), rays equal."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from tpupt_torch.parallel.sharding import make_mesh
+    from tpupt_torch.render.renderer import render_image
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{free_port()}", world_size=1, rank=0,
+                            timeout=datetime.timedelta(seconds=120))
+    try:
+        mesh = make_mesh(1, device="cuda:0")
+        t0 = time.perf_counter()
+        mesh.all_reduce(torch.zeros(1, device="cuda:0"))  # NCCL sets its communicator up at the first one
+        torch.cuda.synchronize()
+        setup = time.perf_counter() - t0
+        zero_counts()
+        t0 = time.perf_counter()
+        _, mean, st = render_image(compiled, cam, seed=0, progress=False, mesh=mesh)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_counts()
+    finally:
+        dist.destroy_process_group()
+    equal = np.array_equal(mean, m_ref, equal_nan=True) and st.rays == st_ref.rays
+    log(f"sharded [nccl, world of 1] cornell {cam.image_width}x{cam.image_height} {cam.samples_per_pixel} spp "
+        f"max_depth {cam.max_depth}: {wall:.3f} s (the communicator's set-up before it, {setup:.3f} s), "
+        f"{st.paths_per_s:.4e} paths/s, {st.iterations} iterations, "
+        f"K1 {launches['K1']} launches; bit-equal to the render without a mesh: {equal} (rays {st.rays} vs "
+        f"{st_ref.rays}); {card_line()}")
+    if not equal or launches["K1"] == 0:
+        raise SystemExit("chip_smoke: the NCCL world of 1 differs from the render without a mesh")
+    return {"cornell": dict(wall_s=wall, paths_per_s=st.paths_per_s, rays=st.rays, iterations=st.iterations,
+                            launches=launches, bit_equal=equal, communicator_setup_s=setup)}
+
+
+def sharded_worker(rank, world, store, out, device, width, spp):
+    """A rank of the two-rank phase: gloo, every rank on `device` (cuda:0). Saves its
+    results to out/rank<rank>.pt."""
+    import torch.distributed as dist
+
+    from tpupt_torch.parallel.multihost import initialize_distributed, make_pod_mesh, render_block_pod
+    from tpupt_torch.parallel.sharding import make_mesh, render_block_sharded, render_grads_sharded
+    from tpupt_torch.render.renderer import render_image
+    from tpupt_torch.scenes import cornell_box_scene, everything_scene
+
+    initialize_distributed(f"file://{store}", num_processes=world, process_id=rank, backend="gloo",
+                           device=device)
+    sync = torch.cuda.synchronize if torch.device(device).type == "cuda" else (lambda: None)
+    try:
+        mesh = make_mesh(world, device=device)
+        res = {}
+        for label, build_fn in (("cornell", cornell_box_scene), ("scene6", everything_scene)):
+            scene, cam = build_fn(width, spp[label])
+            compiled = scene.compile(device=device)
+            mesh.barrier()
+            zero_counts()
+            sync()
+            t0 = time.perf_counter()
+            _, mean, st = render_image(compiled, cam, seed=0, progress=False, mesh=mesh)
+            sync()
+            res[label] = dict(wall_s=time.perf_counter() - t0, paths=st.paths, rays=st.rays,
+                              iterations=st.iterations, launches=read_counts(), mean=mean)
+        scene, cam = grad_box_scene(16, 8)
+        ids = np.arange(256, dtype=np.int32)
+        film, grads = render_grads_sharded(scene.compile(device=device), cam, ids, ids // 16, ids % 16,
+                                           spp=8, mesh=mesh)
+        res["grads"] = (film.cpu().numpy(), {k: v.cpu().numpy() for k, v in grads.items()})
+        scene, cam = cornell_box_scene(width, 8)
+        compiled = scene.compile(device=device)
+        ids = np.arange(width * width, dtype=np.int32)
+        flat, flat_rays = render_block_sharded(compiled, cam, ids, ids // width, ids % width, spp=8, mesh=mesh)
+        pod = make_pod_mesh(1, 2, device=device)
+        film, rays = render_block_pod(compiled, cam, ids, ids // width, ids % width, spp=8, mesh=pod)
+        res["pod"] = dict(close=bool(torch.allclose(film, flat, rtol=1e-5, atol=1e-6)),
+                          max_abs_diff=float((film - flat).abs().max()), rays=rays, flat_rays=flat_rays)
+        torch.save(res, os.path.join(out, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def gloo_two_ranks(dev, m_cornell, st_cornell, kernel_ms, width=600):
+    """Spawn two gloo ranks on the one card (sharded_worker), join each with its own
+    timeout, and hold them against one rank: rays equal, the film within rtol 1e-5 /
+    atol 1e-6; the gradients within rtol 2e-4 / atol 1e-5 (tests/test_sharding.py);
+    the pod mesh equal to the flat one."""
+    import torch.multiprocessing as mp
+
+    from tpupt_torch.render.diff import render_grads
+    from tpupt_torch.scenes import everything_scene
+
+    scene, cam = everything_scene(width, SHARDED_SPP["scene6"])  # one rank, as the two ranks render it
+    m_s6, st_s6, _ = render("scene 6 stand-in (one rank for the two-rank phase)", scene.compile(device=dev),
+                            cam, ["K1", "K2"], kernel_ms)
+    one = {"cornell": (m_cornell, st_cornell), "scene6": (m_s6, st_s6)}
+    scene, cam = grad_box_scene(16, 8)
+    rad1, g1 = render_grads(scene.compile(device=dev), cam, np.arange(256, dtype=np.int32), spp=8, seed=0)
+
+    device = "cuda:0" if dev.type == "cuda" else "cpu"
+    out = tempfile.mkdtemp(prefix="tpupt_ranks_")
+    try:
+        ctx = mp.get_context("spawn")
+        t0 = time.perf_counter()
+        procs = [ctx.Process(target=sharded_worker, args=(r, 2, os.path.join(out, "store"), out, device, width,
+                                                                dict(SHARDED_SPP)))
+                 for r in range(2)]
+        for p in procs:
+            p.start()
+        for r, p in enumerate(procs):
+            p.join(SHARDED_JOIN_S)
+            if p.is_alive():
+                for q in procs:
+                    q.kill()
+                raise SystemExit(f"chip_smoke: sharded rank {r} did not finish in {SHARDED_JOIN_S} s")
+            if p.exitcode != 0:
+                raise SystemExit(f"chip_smoke: sharded rank {r} exited with {p.exitcode}")
+        wall_all = time.perf_counter() - t0
+        ranks = [torch.load(os.path.join(out, f"rank{r}.pt"), weights_only=False) for r in range(2)]
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+
+    card = card_line()
+    summary = {}
+    for label in ("cornell", "scene6"):
+        m1, st1 = one[label]
+        row = {}
+        for r, res in enumerate(ranks):
+            v = res[label]
+            ok = v["rays"] == st1.rays and bool(np.allclose(v["mean"], m1, rtol=1e-5, atol=1e-6, equal_nan=True))
+            diff = float(np.nanmax(np.abs(v["mean"] - m1)))
+            log(f"sharded [gloo, 2 ranks on {device}] {label} {width} px {SHARDED_SPP[label]} spp, rank {r}: "
+                f"{v['wall_s']:.3f} s, {v['paths'] / v['wall_s']:.4e} paths/s, {v['iterations']} iterations "
+                f"(one rank: {st1.iterations} in {st1.wall_s:.3f} s, {st1.paths_per_s:.4e} paths/s), launches "
+                f"{v['launches']}; rays {v['rays']} vs {st1.rays}, max |film diff| {diff:.3e}: within rtol 1e-5 / "
+                f"atol 1e-6 {ok}; {card}")
+            if not ok:
+                raise SystemExit(f"chip_smoke: the two-rank {label} render differs from one rank")
+            if dev.type == "cuda" and any(v["launches"][k] == 0 for k in ("K1",) + (("K2",) if label == "scene6" else ())):
+                raise SystemExit(f"chip_smoke: rank {r}'s {label} render did not launch its kernels")
+            row[f"rank {r}"] = dict(wall_s=v["wall_s"], paths_per_s=v["paths"] / v["wall_s"],
+                                    iterations=v["iterations"], launches=v["launches"], max_abs_diff=diff)
+        row["one rank"] = dict(wall_s=st1.wall_s, paths_per_s=st1.paths_per_s, iterations=st1.iterations)
+        summary[label] = row
+    errs = []
+    for res in ranks:
+        film, grads = res["grads"]
+        errs.append(float(np.abs(film - rad1.cpu().numpy()).max()))
+        for k, ref in g1.items():
+            if not np.allclose(grads[k], ref.cpu().numpy(), rtol=2e-4, atol=1e-5):
+                raise SystemExit(f"chip_smoke: two-rank {k} gradients differ from one device's")
+        if not np.allclose(film, rad1.cpu().numpy(), rtol=1e-4, atol=1e-5):
+            raise SystemExit("chip_smoke: the two-rank gradient film differs from one device's")
+    pods = [res["pod"] for res in ranks]
+    log(f"sharded [gloo, 2 ranks] render_grads_sharded (box 16x16, 8 spp) vs render_grads: every field within "
+        f"rtol 2e-4 / atol 1e-5, film max |diff| {max(errs):.3e}; pod mesh (1 host x 2 chips) vs flat mesh of 2 "
+        f"(cornell {width}x{width}, 8 spp): {pods}; the phase {wall_all:.1f} s with the ranks' start-up")
+    if not all(p["close"] and p["rays"] == p["flat_rays"] for p in pods):
+        raise SystemExit("chip_smoke: the pod mesh differs from the flat mesh")
+    summary["grads box"] = dict(film_max_abs_diff=max(errs))
+    summary["pod vs flat"] = pods
+    summary["phase_wall_s"] = wall_all
+    return {"gloo, 2 ranks on cuda:0": summary}
+
+
 @contextlib.contextmanager
 def assets_in(path):
     """TPUPT_ASSETS pointed at `path` inside the block (a scene resolves its files when
@@ -650,17 +883,19 @@ def main(argv=None) -> int:
         os.environ["TPUPT_ASSETS"] = asset_dir
         tris = write_stand_in_assets(asset_dir)
         write_hdr_env_assets(env_dir)
+        check_image_fixtures(asset_dir)
         log(f"stand-in assets (synthetic, not the reference's files) in TPUPT_ASSETS: "
             f"{tris} triangles, grace_probe_latlong.hdr 128x64; for the environment-map scene "
             f"grace_probe_latlong.hdr {HDR_ENV_WH[0]}x{HDR_ENV_WH[1]}")
-        kernels, grads = run(args, dev, hit_kernel, render_image, cornell_box_scene, balls_scene,
-                             everything_scene, env_dir)
+        kernels, grads, sharded = run(args, dev, hit_kernel, render_image, cornell_box_scene,
+                                      balls_scene, everything_scene, env_dir)
     finally:
         shutil.rmtree(asset_dir, ignore_errors=True)
         shutil.rmtree(env_dir, ignore_errors=True)
 
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"grads": grads}))
+    log(json.dumps({"sharded": sharded, "card": card}))
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
@@ -669,7 +904,7 @@ def main(argv=None) -> int:
 
 
 def run(args, dev, hit_kernel, render_image, cornell_box_scene, balls_scene, everything_scene, env_dir):
-    from tpupt_torch.scenes import environment_map_scene
+    from tpupt_torch.scenes import SCENES, environment_map_scene
 
     def env_build(width, spp):
         with assets_in(env_dir):
@@ -747,13 +982,22 @@ def run(args, dev, hit_kernel, render_image, cornell_box_scene, balls_scene, eve
     kernel_ms = {k: v[0] for k, v in timing.items()}
 
     # ---- the main path: four renders through render_image ----
-    m_cornell, _, cl = render("cornell", c_compiled, ccam, ["K1"], kernel_ms)
+    m_cornell, st_cornell, cl = render("cornell", c_compiled, ccam, ["K1"], kernel_ms)
     _, _, s6l = render("scene 6 stand-in", s6, s6cam, ["K1", "K2"],
                        dict(kernel_ms, K1=k1_times["scene6"]["camera"]["ms"]))
     _, _, bl = render("bigmesh stand-in", big, bcam, ["K3"], kernel_ms)
     _, _, ball = render("balls", balls, balls_cam, ["K1"], dict(kernel_ms, K1=k1_times["balls"]["camera"]["ms"]))
     m_env, _, el = render("environment map (HDR, importance sampled)", env, ecam, ["K1"],
                           dict(kernel_ms, K1=k1_times["env"]["camera"]["ms"]))
+    textured = {}  # scenes 2, 5 and 7: their textures through the port's PNG and JPEG readers
+    for sid in (2, 5, 7):
+        name, build_fn = SCENES[sid]
+        scene, cam = build_fn(600, SPP["textures"])
+        compiled = scene.compile(device=dev)
+        if not compiled.data.has_image_textures or (sid == 7) != compiled.data.has_normal_maps:
+            raise SystemExit(f"chip_smoke: scene {sid} did not compile its image textures")
+        _, _, tl = render(f"scene {sid} ({name}, stand-in textures)", compiled, cam, ["K1"], kernel_ms)
+        textured[f"scene{sid}"] = tl["K1"]
     launches = {"K1": cl["K1"], "K2": s6l["K2"], "K3": bl["K3"]}
     k1_launches = {"cornell": cl["K1"], "scene6": s6l["K1"], "balls": ball["K1"], "env": el["K1"]}
     for shape, n in k1_launches.items():  # which shape K1's time above its bound costs the most
@@ -771,6 +1015,8 @@ def run(args, dev, hit_kernel, render_image, cornell_box_scene, balls_scene, eve
         f"{mean_g:.6f} vs {mean_c:.6f} (|diff| {abs(mean_g - mean_c):.6f}, 5-sigma tol {tol:.6f})")
     if abs(fin_g - fin_c) > 0.01 or abs(mean_g - mean_c) > tol:
         raise SystemExit("chip_smoke: the cornell film differs from the cpu render")
+    for sid in (2, 5, 7):
+        compare_small(f"scene {sid} ({SCENES[sid][0]}, stand-in textures)", SCENES[sid][1], dev)
     m_env_cpu, se_ec = compare_small("environment map (HDR, importance sampled)", env_build, dev)
     fin_g, mean_g, se_g = image_stats(m_env)
     fin_c, mean_c, _ = image_stats(m_env_cpu)
@@ -789,10 +1035,17 @@ def run(args, dev, hit_kernel, render_image, cornell_box_scene, balls_scene, eve
     grads["box, cuda vs cpu"] = compare_grads("box", lambda: grad_box_scene(16, 8), dev, "K1")
     grads["mesh, cuda vs cpu"] = compare_grads("mesh (5000 triangles, flat cluster route)",
                                                lambda: small_mesh_scene(16, 8), dev, "K2")
+    grads["two-level mesh, cuda vs cpu"] = compare_grads(
+        "mesh (60000 random triangles, two-level cluster route)", lambda: random_mesh_scene(16, 8), dev, "K3")
+
+    # ---- the sharded phases: a world of 1 over NCCL, then two gloo ranks on the one card ----
+    sharded = {"nccl, world of 1": nccl_world_of_one(c_compiled, ccam, m_cornell, st_cornell)}
+    sharded.update(gloo_two_ranks(dev, m_cornell, st_cornell, kernel_ms))
 
     if args.profile:
         for label, build in (("cornell", cornell_box_scene), ("scene6", everything_scene),
-                             ("bigmesh", bigmesh_scene), ("balls", balls_scene), ("env", env_build)):
+                             ("bigmesh", bigmesh_scene), ("balls", balls_scene), ("env", env_build),
+                             *((f"scene{sid}", SCENES[sid][1]) for sid in (2, 5, 7))):
             scene, cam = build(600, 2)
             profile_render(args.profile, label, render_image, scene.compile(device=dev), cam)
         cfg = GRADS["grads"]
@@ -821,14 +1074,20 @@ def run(args, dev, hit_kernel, render_image, cornell_box_scene, balls_scene, eve
                                bound_ms_bounce=b["bound_ms"],
                                shapes={shape: dict(v, launches=k1_launches[shape])
                                        for shape, v in k1_times.items()})
-        # launches on each path: renders, and gradient runs' forward trips and replays
-        paths = dict(k1_launches) if k == "K1" else {"K2": {"scene6": s6l["K2"]}, "K3": {"bigmesh": bl["K3"]}}[k]
+        # launches on each path: renders (the sharded ones a rank), and gradient runs'
+        # forward trips and replays
+        paths = dict(k1_launches, **textured) if k == "K1" else {"K2": {"scene6": s6l["K2"]}, "K3": {"bigmesh": bl["K3"]}}[k]
+        for label, run_ in sharded.items():
+            for what, v in run_.items():
+                v = v.get("rank 0", v) if isinstance(v, dict) else {}
+                if v.get("launches", {}).get(k):
+                    paths[f"{label}, {what} (a rank)"] = v["launches"][k]
         for label, g in grads.items():
             if g["launches_forward"][k]:
                 paths[f"{label} forward"] = g["launches_forward"][k]
                 paths[f"{label} replay"] = g["launches_replay"][k]
         kernels[-1]["launches_by_path"] = paths
-    return kernels, grads
+    return kernels, grads, sharded
 
 
 def device_kernels(prof):

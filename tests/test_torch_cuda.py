@@ -23,6 +23,8 @@ from tpupt_torch.render.renderer import render_image
 from tpupt_torch.scene.builder import Diffuse, Light, Scene
 from tpupt_torch.scenes import balls_scene, cornell_box_scene
 
+from chip_smoke import FIXTURE_DIR, FIXTURES, random_mesh_scene
+
 
 @pytest.fixture
 def cuda():
@@ -390,22 +392,25 @@ def _grad_box_scene():
     return s, cam
 
 
-@pytest.mark.parametrize("which", ["box", "mesh"])
+@pytest.mark.parametrize("which", ["box", "mesh", "two_level"])
 def test_grads_match_cpu(cuda, which):
     """render_film_grads on the card against the CPU (plain kernels): per field a
     relative L1 error of at most 2e-2 (an ulp of the card's transcendentals flips a
     rare path, and the gathers' backward adds with atomics on the card), and the
-    image on at least 95% of pixels within rtol 1e-3 / atol 1e-4."""
+    image on at least 95% of pixels within rtol 1e-3 / atol 1e-4. mesh runs K2 in
+    every trip and its replay, two_level (60000 triangles) K3."""
     from tpupt_torch.render.diff import render_film_grads
 
-    scene, cam = _grad_box_scene() if which == "box" else _mesh_scene(16, 8)
+    scene, cam = {"box": _grad_box_scene, "mesh": lambda: _mesh_scene(16, 8),
+                  "two_level": lambda: random_mesh_scene(16, 8)}[which]()
     m_cpu, g_cpu = render_film_grads(scene.compile(device="cpu"), cam, seed=0)
-    before = (hit_kernel.launches, tri_kernel.launches["flat"])
+    before = hit_kernel.launches
     m_gpu, g_gpu, st = render_film_grads(scene.compile(device=cuda), cam, seed=0, return_stats=True)
     assert st.launches_forward["K1"] == st.launches_backward["K1"] == st.trips > 0
-    if which == "mesh":
-        assert st.launches_forward["K2"] == st.launches_backward["K2"] == st.trips
-    assert hit_kernel.launches - before[0] == 2 * st.trips
+    kernel = {"mesh": "K2", "two_level": "K3"}.get(which)
+    if kernel:
+        assert st.launches_forward[kernel] == st.launches_backward[kernel] == st.trips
+    assert hit_kernel.launches - before == 2 * st.trips
     close = np.isclose(m_gpu.cpu().numpy(), m_cpu.numpy(), rtol=1e-3, atol=1e-4).all(-1).mean()
     assert close >= 0.95, close
     for k, ref in g_cpu.items():
@@ -455,20 +460,84 @@ def recorded_kernel_outputs(monkeypatch, compiled, cam, module=hit_kernel, name=
     return calls[:n], calls[n:][::-1], st
 
 
-@pytest.mark.parametrize("which", ["K1", "K2"])
+@pytest.mark.parametrize("which", ["K1", "K2", "K3"])
 def test_checkpoint_replay_bits_equal_on_the_card(cuda, monkeypatch, which):
     """A kernel's outputs in each forward trip and in its replay in the backward pass are
-    the same bits (K1 is deterministic; K2 zeroes its packet counter at every launch),
-    and it launches once for each."""
+    the same bits (K1 is deterministic; K2 and K3 zero their packet counter at every
+    launch), and it launches once for each."""
     if which == "K1":
         scene, cam = cornell_box_scene(16, 4)
         cam.max_depth = 12
         spy = dict(module=hit_kernel, name="closest_sphere_quad")
     else:
-        scene, cam = _mesh_scene(16, 4)
+        scene, cam = _mesh_scene(16, 4) if which == "K2" else random_mesh_scene(16, 4)
         spy = dict(module=tri_kernel, name="closest_tri")
     fwd, replay, st = recorded_kernel_outputs(monkeypatch, scene.compile(device=cuda), cam, **spy)
     assert len(fwd) == len(replay) == st.trips == st.launches_forward[which] == st.launches_backward[which]
     for a, b in zip(fwd, replay):
         for x, y in zip(a, b):
             assert torch.equal(x.view(torch.int32), y.view(torch.int32))
+
+
+# ---- the image readers and the sharded render on the card's machine ----
+
+
+@pytest.mark.parametrize("name", FIXTURES)
+def test_decoders_on_the_committed_fixtures(cuda, name):
+    """The PNG and JPEG readers where there is no PIL: PIL's decode of each fixture (.npy)
+    bit for bit."""
+    import os
+
+    from tpupt_torch.io.image import load_image_rgb8
+
+    path = os.path.join(FIXTURE_DIR, name)
+    np.testing.assert_array_equal(load_image_rgb8(path), np.load(os.path.splitext(path)[0] + ".npy"))
+
+
+def test_nccl_world_of_one_bit_equal(cuda):
+    """render_image under a world of 1 over NCCL equals the render without a mesh, bit for bit."""
+    import socket
+
+    import torch.distributed as dist
+
+    from tpupt_torch.parallel.sharding import make_mesh
+
+    compiled, cam = cornell_box_scene(32, 8)[0].compile(device=cuda), cornell_box_scene(32, 8)[1]
+    _, ref, st_ref = render_image(compiled, cam, progress=False)
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}", world_size=1, rank=0)
+    try:
+        _, mean, st = render_image(compiled, cam, progress=False, mesh=make_mesh(1, device="cuda:0"))
+    finally:
+        dist.destroy_process_group()
+    np.testing.assert_array_equal(mean, ref)
+    assert st.rays == st_ref.rays
+
+
+def test_two_gloo_ranks_on_one_card(cuda, tmp_path):
+    """Two spawned ranks on cuda:0 over gloo against one: rays equal, the image within
+    rtol 1e-5 / atol 1e-6 (the float32 film sum in another order). Each rank is joined
+    with its own timeout."""
+    import torch.multiprocessing as mp
+
+    import torch_sharding_worker as W
+
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=W.card_worker, args=(r, 2, str(tmp_path / "store"), str(tmp_path)))
+             for r in range(2)]
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join(300)
+        if p.is_alive():
+            p.kill()
+        assert p.exitcode == 0
+    scene, cam = cornell_box_scene(32, 8)
+    _, ref, st_ref = render_image(scene.compile(device=cuda), cam, progress=False)
+    for r in range(2):
+        mean, rays = torch.load(tmp_path / f"card_rank{r}.pt", weights_only=False)
+        assert rays == st_ref.rays
+        np.testing.assert_allclose(mean, ref, rtol=1e-5, atol=1e-6)

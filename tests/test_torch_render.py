@@ -14,6 +14,7 @@
 """
 
 import ast
+import json
 import os
 import pathlib
 import struct
@@ -147,8 +148,18 @@ def test_transient_fault_retried_and_other_errors_propagate():
 def test_debug_checks_and_mesh():
     compiled, cam = _small()
     R.render_image(compiled, cam, debug_checks=True, **KW)
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
+    with pytest.raises(TypeError, match="parallel.sharding.Mesh"):
         R.render_image(compiled, cam, mesh=object(), **KW)
+
+
+def test_profile_dir_writes_a_trace(tmp_path):
+    compiled, cam = _small()
+    _, mean, _ = R.render_image(compiled, cam, profile_dir=str(tmp_path / "prof"), **KW)
+    _, plain, _ = R.render_image(compiled, cam, **KW)
+    np.testing.assert_array_equal(mean, plain)
+    trace = json.loads((tmp_path / "prof" / "render_rank0.json").read_text())
+    ops = [e["name"] for e in trace["traceEvents"] if e.get("name", "").startswith("aten::")]
+    assert len(ops) > 100 and "aten::index_add_" in ops  # the film's scatter among them
 
 
 def _read_png(path):
@@ -175,6 +186,19 @@ def test_cli_writes_png(tmp_path):
     assert img.shape == (16, 16, 3) and img.max() > 0
 
 
+def test_cli_profile_and_mesh(tmp_path, capsys):
+    out, prof = tmp_path / "cornell.png", tmp_path / "prof"
+    args = ["-s", "3", "--width", "16", "--spp", "4", "--device", "cpu", "-o", str(out)]
+    assert cli.main(args + ["--profile", str(prof), "--mesh", "1"]) == 0
+    plain = tmp_path / "plain.png"
+    assert cli.main(args[:-1] + [str(plain)]) == 0
+    np.testing.assert_array_equal(_read_png(out), _read_png(plain))
+    assert (prof / "render_rank0.json").exists()
+    with pytest.raises(SystemExit):  # a mesh of 2 needs 2 processes
+        cli.main(args + ["--mesh", "2"])
+    assert "torchrun --nproc-per-node 2 python -m tpupt_torch.cli --mesh 2" in capsys.readouterr().err
+
+
 def _imports(path):
     tree = ast.parse(pathlib.Path(path).read_text(), filename=str(path))
     for node in ast.walk(tree):
@@ -185,9 +209,10 @@ def _imports(path):
 
 
 def test_port_imports_neither_jax_nor_tpupt():
+    """Nor PIL: the port reads PNG and JPEG itself (the card's machine has no PIL)."""
     files = sorted((ROOT / "tpupt_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 10 and os.path.exists(files[-1])
     for f in files:
         for mod in _imports(f):
             top = mod.split(".")[0]
-            assert top not in ("jax", "jaxlib", "tpupt"), f"{f} imports {mod}"
+            assert top not in ("jax", "jaxlib", "tpupt", "PIL"), f"{f} imports {mod}"

@@ -6,11 +6,15 @@ cluster blocks are compared with the reference's relaid (from_reference_packing)
 """
 
 import dataclasses
+import pathlib
+import shutil
 
 import numpy as np
 import pytest
 import torch
 
+import tpupt.scenes as JSCENES_MODULE
+from chip_smoke import _write_hdr
 from tpupt.scene import builder as JB
 from tpupt.scenes import SCENES as JSCENES
 from tpupt_torch.ops.tri_kernel import from_reference_packing
@@ -18,6 +22,8 @@ from tpupt_torch.scene import builder as TB
 from tpupt_torch.scene import data as TD
 from tpupt_torch.scene.convert import scene_data_from_numpy
 from tpupt_torch.scenes import SCENES as TSCENES
+
+DATA = pathlib.Path(__file__).resolve().parent / "torch_data"
 
 
 def _assert_same(tsd, jsd):
@@ -35,14 +41,33 @@ def _assert_same(tsd, jsd):
         assert getattr(tsd, name) == getattr(jsd, name), name
 
 
-@pytest.mark.parametrize("sid", [1, 3])
-def test_compile_matches_reference(sid):
+@pytest.fixture
+def stand_in_assets(tmp_path, monkeypatch):
+    """The committed JPEG and PNG fixtures and a synthetic .hdr sky in a temp dir, which
+    both packages read as their asset directory (the reference reads it at import)."""
+    for name in ("earthmap.jpg", "envmap.jpg", "bricks/color.png", "bricks/normal.png"):
+        (tmp_path / name).parent.mkdir(parents=True, exist_ok=True)
+        shutil.copy(DATA / name, tmp_path / name)
+    _write_hdr(str(tmp_path / "grace_probe_latlong.hdr"))
+    monkeypatch.setenv("TPUPT_ASSETS", str(tmp_path))
+    monkeypatch.setattr(JSCENES_MODULE, "ASSETS", str(tmp_path))
+    return tmp_path
+
+
+@pytest.mark.parametrize("sid", [1, 2, 3, 4, 5, 7])
+def test_compile_matches_reference(sid, stand_in_assets):
+    """Scenes 2, 5 and 7 read JPEG and PNG textures, which the reference decodes with
+    PIL and the port with its own readers; scene 4 reads the .hdr sky."""
     _, jbuild = JSCENES[sid]
     _, tbuild = TSCENES[sid]
     jc = jbuild(16, 4)[0].compile()
     tc = tbuild(16, 4)[0].compile(device="cpu")
     assert tc.has_lights == jc.has_lights
     _assert_same(tc.data, jc.data)
+    if sid in (2, 5, 7):
+        assert tc.data.has_image_textures
+    if sid == 7:
+        assert tc.data.has_normal_maps
 
 
 def _hand_scene(B, image):

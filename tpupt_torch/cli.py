@@ -5,6 +5,7 @@ Usage: python -m tpupt_torch.cli -s 3                  # 600 px, 100 spp on cuda
        python -m tpupt_torch.cli -s 3 --width 32 --spp 4 --device cpu
        TPUPT_ASSETS=/path/to/assets python -m tpupt_torch.cli -s 6   # OBJ meshes, .hdr env
        TPUPT_ASSETS=/path/to/assets python -m tpupt_torch.cli -s 4 --hdr-env
+       torchrun --nproc-per-node 8 python -m tpupt_torch.cli -s 3 --mesh 8   # 8 GPUs
 """
 
 from __future__ import annotations
@@ -34,6 +35,13 @@ def main(argv=None):
         "(bit-identical to an uninterrupted render)",
     )
     ap.add_argument(
+        "--profile",
+        type=str,
+        default=None,
+        metavar="DIR",
+        help="write a torch.profiler Chrome trace of the render to DIR (one a rank)",
+    )
+    ap.add_argument(
         "--debug-checks",
         action="store_true",
         help="validate every launch's film for NaN/Inf and fail loudly",
@@ -45,6 +53,14 @@ def main(argv=None):
         "(scenes 4, 6 and 7; the reference quantizes it to u8)",
     )
     ap.add_argument("--device", type=str, default="cuda", help="torch device (default cuda)")
+    ap.add_argument(
+        "--mesh",
+        type=int,
+        default=None,
+        metavar="N",
+        help="shard the samples over N processes, one a device (film all-reduced once a "
+        "launch); launch with torchrun --nproc-per-node N",
+    )
     args = ap.parse_args(argv)
 
     width, spp = (1920, 4000) if args.quality else (600, 100)  # main.rs:633
@@ -61,27 +77,48 @@ def main(argv=None):
         print(f"unknown scene {args.scene}; choose from {sorted(SCENES)}")
         return 1
 
+    device, mesh = args.device, None
+    if args.mesh is not None:
+        from .parallel.multihost import initialize_distributed
+        from .parallel.sharding import make_mesh
+
+        if args.mesh > 1 and int(os.environ.get("WORLD_SIZE", "1")) == 1:
+            ap.error(f"--mesh {args.mesh} runs one process a device: torchrun --nproc-per-node "
+                     f"{args.mesh} python -m tpupt_torch.cli --mesh {args.mesh} ...")
+        if device == "cuda":
+            device = f"cuda:{int(os.environ.get('LOCAL_RANK', '0'))}"
+        initialize_distributed(device=device)
+        mesh = make_mesh(args.mesh, device=device)
+    lead = mesh is None or mesh.index == 0  # only rank 0 writes and reports
+
     name, build = SCENES[args.scene]
     out_path = args.output or os.path.join("out", f"{name}.png")
-    os.makedirs(os.path.dirname(out_path) or ".", exist_ok=True)
-
-    print(f"scene {args.scene} ({name}): {width}px, {spp} spp on {args.device}")
+    if lead:
+        os.makedirs(os.path.dirname(out_path) or ".", exist_ok=True)
+        print(f"scene {args.scene} ({name}): {width}px, {spp} spp on {device}"
+              + ("" if mesh is None else f", sharded over {mesh.size} processes"))
     kwargs = {}
     if args.hdr_env:
         if "hdr_env" not in inspect.signature(build).parameters:
-            print(f"--hdr-env: scene {args.scene} has no environment map; ignoring")
+            if lead:
+                print(f"--hdr-env: scene {args.scene} has no environment map; ignoring")
         else:
             kwargs["hdr_env"] = True
     scene, camera = build(width, spp, **kwargs)
-    compiled = scene.compile(device=args.device)
+    compiled = scene.compile(device=device)
     img, _, stats = render_image(
         compiled,
         camera,
         seed=args.seed,
         rays_per_launch=args.rays_per_launch,
         checkpoint_path=args.checkpoint,
+        profile_dir=args.profile,
         debug_checks=args.debug_checks,
+        mesh=mesh,
+        progress=lead,
     )
+    if not lead:
+        return 0
     save_png(out_path, img)
     print(
         f"rendered {stats.paths} paths in {stats.wall_s:.2f}s "

@@ -2,9 +2,9 @@
 
 Input: the reference decodes every texture, `.hdr` Radiance files included, to
 Rgb8 (texture.rs:63-68: ``decode().to_rgb8()``); ``load_image_rgb8`` reproduces
-that quantization. `.hdr` files are decoded here in numpy; PNG and JPEG go
-through PIL, imported only when such a file is read, which raises ImportError
-where PIL is not installed.
+that quantization. `.hdr` files (by suffix) are decoded here in numpy; PNG and
+JPEG files (by their first bytes) by the port's own readers, ``io/png.py`` and
+``io/jpeg.py``, which give PIL's bytes. No path needs an imaging package.
 
 Output: PNG is written with the standard library (zlib), no imaging package.
 """
@@ -15,6 +15,10 @@ import struct
 import zlib
 
 import numpy as np
+
+from .jpeg import read_jpeg_rgb8
+from .png import SIGNATURE as PNG_SIGNATURE
+from .png import read_png_rgb8
 
 
 def _read_radiance_hdr(path: str) -> np.ndarray:
@@ -76,15 +80,15 @@ def _read_radiance_hdr(path: str) -> np.ndarray:
     return img[..., :3].astype(np.float32) * scale[..., None]
 
 
-def _pil_rgb(path: str):
-    try:
-        from PIL import Image
-    except ImportError as e:
-        raise ImportError(
-            f"{path}: reading PNG/JPEG images needs PIL (Pillow), which is not installed; "
-            ".hdr files need nothing beyond numpy"
-        ) from e
-    return Image.open(path).convert("RGB")
+def _decode_rgb8(path: str) -> np.ndarray:
+    """A PNG or JPEG file, told apart by its first bytes -> uint8 [H,W,3]."""
+    with open(path, "rb") as f:
+        head = f.read(8)
+    if head == PNG_SIGNATURE:
+        return read_png_rgb8(path)
+    if head[:2] == b"\xff\xd8":
+        return read_jpeg_rgb8(path)
+    raise ValueError(f"{path}: not a PNG, JPEG or .hdr image")
 
 
 def load_image_rgb8(path: str) -> np.ndarray:
@@ -98,14 +102,14 @@ def load_image_rgb8(path: str) -> np.ndarray:
         data = _read_radiance_hdr(path)
         q = np.clip(data, 0.0, 1.0) * 255.0 + 0.5
         return np.floor(q).clip(0, 255).astype(np.uint8)
-    return np.asarray(_pil_rgb(path), dtype=np.uint8)
+    return _decode_rgb8(path)
 
 
 def load_image_f32(path: str) -> np.ndarray:
     """Load at full precision (HDR stays HDR) -> float32 [H,W,3]."""
     if path.lower().endswith(".hdr"):
         return _read_radiance_hdr(path)
-    return np.asarray(_pil_rgb(path), dtype=np.float32) / 255.0
+    return _decode_rgb8(path).astype(np.float32) / 255.0
 
 
 def _chunk(tag: bytes, data: bytes) -> bytes:

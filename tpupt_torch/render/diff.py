@@ -251,17 +251,22 @@ def render_film_grads(
 
 def segmented_film_vjp(
     params, sd, cam, pixel_ids, rows, cols, sample_ids, seed, max_depth,
-    has_lights, cotangent, *, segment_size=SEGMENT,
+    has_lights, cotangent, *, segment_size=SEGMENT, mesh=None,
 ):
     """Radiance and parameter grads through an explicitly segmented backward pass.
 
     Same estimator and gradients as autograd of trace_radiance_scan, but the
     forward pass keeps only the carries at segment boundaries (no graph), and the
     backward pass replays one segment at a time, newest first, taking that
-    segment's parameter gradients and the cotangents of its input carry. Each
-    segment's gradient chunk is ready as soon as its replay ends (the reference
-    all-reduces it there; multi-GPU is not ported). cotangent is per lane [B,3].
-    Returns (radiance [B,3], grads by DIFF_FIELDS name).
+    segment's parameter gradients and the cotangents of its input carry.
+
+    mesh (a parallel.sharding.Mesh; the counterpart of the reference's psum_axis):
+    each segment's gradient chunk is all-reduced over the mesh as soon as its replay
+    ends, asynchronously, so the collective overlaps the next (earlier) segment's
+    backward; the handles are waited on at the end. The segment gate stays per rank:
+    a rank whose lanes are all dead in a segment joins that segment's collective
+    with zeros. cotangent is per lane [B,3]. Returns (radiance [B,3], grads by
+    DIFF_FIELDS name, summed over the mesh).
     """
     o, d, time = generate_rays(cam, rows, cols, pixel_ids, sample_ids, seed)
     b = pixel_ids.shape[0]
@@ -292,19 +297,34 @@ def segmented_film_vjp(
     ct_T = torch.zeros((b, 3), dtype=REAL, device=o.device)
     ct_L = torch.as_tensor(cotangent, dtype=REAL, device=o.device)
     grads = {n: torch.zeros_like(v) for n, v in params.items()}
+    chunks = []  # (flat gradient chunk, its all-reduce handle) a segment, under a mesh
     for seg in reversed(range(n_seg)):
         o_s, d_s, T_s, L_s, alive_s = carries[seg]
         if not bool(alive_s.any()):
-            continue
-        p = _leaves(params)
-        T_s, L_s = T_s.detach().requires_grad_(True), L_s.detach().requires_grad_(True)
-        with torch.enable_grad():
-            _, _, T_o, L_o, _ = seg_f(p, (o_s, d_s, T_s, L_s, alive_s), seg)
-            loss = (T_o * ct_T).sum() + (L_o * ct_L).sum()
-            g = _grads(loss, dict(p, _T=T_s, _L=L_s))
-        ct_T, ct_L = g.pop("_T"), g.pop("_L")
-        for n in grads:
-            grads[n] = grads[n] + g[n]
+            g = {n: torch.zeros_like(v) for n, v in params.items()}
+        else:
+            p = _leaves(params)
+            T_s, L_s = T_s.detach().requires_grad_(True), L_s.detach().requires_grad_(True)
+            with torch.enable_grad():
+                _, _, T_o, L_o, _ = seg_f(p, (o_s, d_s, T_s, L_s, alive_s), seg)
+                loss = (T_o * ct_T).sum() + (L_o * ct_L).sum()
+                g = _grads(loss, dict(p, _T=T_s, _L=L_s))
+            ct_T, ct_L = g.pop("_T"), g.pop("_L")
+        if mesh is None:
+            for n in grads:
+                grads[n] = grads[n] + g[n]
+        else:  # one collective a segment, started now and waited on at the end
+            flat = torch.cat([g[n].reshape(-1) for n in grads])
+            chunks.append((flat, mesh.all_reduce(flat, async_op=True)))
+    if chunks:
+        for _, handle in chunks:
+            if handle is not None:
+                handle.wait()
+        total = chunks[0][0]
+        for flat, _ in chunks[1:]:  # in the order of the loop above, as without a mesh
+            total = total + flat
+        sizes = [v.numel() for v in grads.values()]
+        grads = {n: x.reshape(v.shape) for (n, v), x in zip(grads.items(), total.split(sizes))}
     return radiance, grads
 
 

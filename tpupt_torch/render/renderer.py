@@ -3,11 +3,14 @@
 Counterpart of ``tpupt/render/renderer.py``. The (pixel, sample) space is flattened
 into lanes of fixed-size launches; each launch runs the path-regeneration wavefront
 (integrator.trace_film_streamed) and its film is accumulated on the host in float64.
-Runs on one device (the compiled scene's); multi-GPU waits for its port (ROADMAP).
+Runs on the compiled scene's device; with a mesh (parallel/sharding.py), each
+process traces its own sample slice of every launch on its device and the film is
+all-reduced once a launch.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
 import time as _time
@@ -19,6 +22,7 @@ from ..core.dtypes import NP_REAL
 from ..scene.compile import CompiledScene
 from .camera import Camera
 from .film import tonemap_quantize
+from ..parallel.sharding import Mesh, all_reduce_film
 from .integrator import trace_film_streamed
 
 
@@ -28,7 +32,8 @@ class RenderStats:
     paths: int = 0
     rays: int = 0  # scene intersections of live lanes (every bounce counts)
     launches: int = 0
-    iterations: int = 0  # wavefront iterations; each costs one host sync
+    # wavefront iterations (each costs one host sync); under a mesh, this rank's own
+    iterations: int = 0
 
     @property
     def paths_per_s(self) -> float:
@@ -110,6 +115,7 @@ def render_image(
     progress: bool = True,
     checkpoint_path: str | None = None,
     on_launch=None,
+    profile_dir: str | None = None,
     debug_checks: bool = False,
     mesh=None,
 ):
@@ -128,38 +134,48 @@ def render_image(
     on_launch(mean_so_far [H,W,3] f32, samples_done_fraction) is called after
     every launch.
 
+    profile_dir: trace the render with torch.profiler (CPU, and CUDA on a card) and
+    write a Chrome trace, ``render_rank{i}.json`` (i = the mesh index, 0 without a
+    mesh), into the directory.
+
     debug_checks: validate every launch's film for NaN/Inf and raise with the
     launch coordinates.
 
-    mesh: multi-device rendering is not ported yet; passing one raises.
+    mesh: a parallel.sharding.Mesh to scale the render over (one process a device;
+    every rank of the mesh calls render_image). Each rank traces its own r*k-sample
+    slice of every launch with the same streamed wavefront; the film and the ray
+    count are all-reduced once a launch, so every rank returns the same image. Only
+    index 0 writes the checkpoint; every rank resumes from it.
     """
-    if mesh is not None:
-        raise NotImplementedError("render_image(mesh=...): multi-GPU is not ported yet (ROADMAP)")
+    if mesh is not None and not isinstance(mesh, Mesh):
+        raise TypeError(f"render_image: mesh must be a parallel.sharding.Mesh, got {type(mesh).__name__}")
     sd = compiled.data
     dev = sd.device
     cam = camera.init(dev)
     w, h = camera.image_width, camera.image_height
     spp = camera.samples_per_pixel
     npix = w * h
+    n_dev = 1 if mesh is None else mesh.size
 
     pb = min(npix, rays_per_launch)
     # launch schedule, inherited from the reference package (not yet re-derived
     # for this card): replicate pixels across lanes only while the pixel block is
     # below LANE_TARGET lanes, and keep each lane's sample slice k as long as
-    # samples_per_launch allows
+    # samples_per_launch allows. r and k are per device: a launch covers
+    # n_dev * r * k samples a pixel.
     LANE_TARGET = 1 << 18
     if pb >= LANE_TARGET:
         r = 1
     else:
         r = max(1, min(LANE_TARGET // pb + 1, rays_per_launch // pb, spp // 8))
-    k = min((spp + r - 1) // r, samples_per_launch)
-    spl = r * k  # samples per pixel per launch
+    k = min((spp + n_dev * r - 1) // (n_dev * r), samples_per_launch)
+    spl = n_dev * r * k  # samples per pixel per launch
     n_pixel_blocks = (npix + pb - 1) // pb
     n_sample_chunks = (spp + spl - 1) // spl
     total_launches = n_pixel_blocks * n_sample_chunks
 
-    # the reference's fingerprint layout (n_dev = 1, Morton pixel order = 1)
-    fingerprint = np.array([w, h, spp, seed, pb, k, r, camera.max_depth, 1, 1], dtype=np.int64)
+    # the reference's fingerprint layout (..., n_dev, Morton pixel order = 1)
+    fingerprint = np.array([w, h, spp, seed, pb, k, r, camera.max_depth, n_dev, 1], dtype=np.int64)
     film = np.zeros((npix, 3), dtype=np.float64)
     stats = RenderStats()
     start_it = 0
@@ -178,64 +194,82 @@ def render_image(
         if progress:
             print(f"  resuming at launch {start_it}/{total_launches}", flush=True)
 
-    t0 = _time.perf_counter()
+    if profile_dir is None:
+        prof = contextlib.nullcontext()
+    else:
+        from torch.profiler import ProfilerActivity, profile
+
+        acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if dev.type == "cuda" else [])
+        prof = profile(activities=acts)
+    # this rank's first sample of a launch, after the launch's first sample
+    dev_sample0 = 0 if mesh is None else mesh.index * r * k
     order = _morton_pixel_order(w, h)
-    for it in range(start_it, total_launches):
-        pblk, schunk = divmod(it, n_sample_chunks)
-        lo = pblk * pb
-        ids = order[lo : min(lo + pb, npix)]
-        n_valid = len(ids)
-        if n_valid < pb:  # pad the final block (padded lanes never start a path)
-            ids = np.concatenate([ids, np.zeros(pb - n_valid, np.int32)])
-        for attempt in (0, 1):  # one launch-level retry on a transient failure
-            try:
-                if _fault_hook is not None:
-                    _fault_hook(it)
-                out, rays, iters = _chunk_film(
-                    sd, cam, torch.from_numpy(ids).to(dev), n_valid, schunk * spl, spp, seed,
-                    k=k, r=r, max_depth=camera.max_depth, has_lights=compiled.has_lights, width=w,
+    t0 = _time.perf_counter()
+    with prof:
+        for it in range(start_it, total_launches):
+            pblk, schunk = divmod(it, n_sample_chunks)
+            lo = pblk * pb
+            ids = order[lo : min(lo + pb, npix)]
+            n_valid = len(ids)
+            if n_valid < pb:  # pad the final block (padded lanes never start a path)
+                ids = np.concatenate([ids, np.zeros(pb - n_valid, np.int32)])
+            for attempt in (0, 1):  # one launch-level retry on a transient failure
+                try:
+                    if _fault_hook is not None:
+                        _fault_hook(it)
+                    out, rays, iters = _chunk_film(
+                        sd, cam, torch.from_numpy(ids).to(dev), n_valid, schunk * spl + dev_sample0,
+                        spp, seed, k=k, r=r, max_depth=camera.max_depth,
+                        has_lights=compiled.has_lights, width=w,
+                    )
+                    break
+                except TransientLaunchError:
+                    if attempt == 1:
+                        raise
+                    if progress:
+                        print(f"  launch {it} failed transiently; retrying", flush=True)
+            if mesh is not None:  # after the retry scope: every rank joins once a launch
+                out, rays = all_reduce_film(mesh, out, rays)
+            out = out.cpu().numpy()
+            if debug_checks:
+                bad = ~np.isfinite(out[:n_valid])
+                if bad.any():
+                    lanes = np.nonzero(bad.any(axis=-1))[0]
+                    raise FloatingPointError(
+                        f"non-finite film at launch {it} (pixel block {pblk}, sample "
+                        f"chunk {schunk}): {len(lanes)} pixels, first ids "
+                        f"{ids[lanes[:8]].tolist()}"
+                    )
+            film[ids[:n_valid]] += out[:n_valid].astype(np.float64)
+            stats.launches += 1
+            stats.paths += n_valid * min(spl, spp - schunk * spl)
+            stats.rays += rays
+            stats.iterations += iters
+            if checkpoint_path is not None and (mesh is None or mesh.index == 0):
+                tmp = checkpoint_path + ".tmp.npz"
+                np.savez(
+                    tmp,
+                    film=film,
+                    next_it=np.int64(it + 1),
+                    paths=np.int64(stats.paths),
+                    rays=np.int64(stats.rays),
+                    fingerprint=fingerprint,
                 )
-                out = out.cpu().numpy()
-                break
-            except TransientLaunchError:
-                if attempt == 1:
-                    raise
-                if progress:
-                    print(f"  launch {it} failed transiently; retrying", flush=True)
-        if debug_checks:
-            bad = ~np.isfinite(out[:n_valid])
-            if bad.any():
-                lanes = np.nonzero(bad.any(axis=-1))[0]
-                raise FloatingPointError(
-                    f"non-finite film at launch {it} (pixel block {pblk}, sample "
-                    f"chunk {schunk}): {len(lanes)} pixels, first ids "
-                    f"{ids[lanes[:8]].tolist()}"
+                os.replace(tmp, checkpoint_path)  # atomic: partial writes never land
+            if checkpoint_path is not None and mesh is not None:
+                mesh.barrier()  # no rank runs ahead of the launch the checkpoint holds
+            if on_launch is not None:
+                done_spp = min((schunk + 1) * spl, spp)
+                on_launch(
+                    (film / max(done_spp, 1)).reshape(h, w, 3).astype(np.float32),
+                    (it + 1) / total_launches,
                 )
-        film[ids[:n_valid]] += out[:n_valid].astype(np.float64)
-        stats.launches += 1
-        stats.paths += n_valid * min(spl, spp - schunk * spl)
-        stats.rays += rays
-        stats.iterations += iters
-        if checkpoint_path is not None:
-            tmp = checkpoint_path + ".tmp.npz"
-            np.savez(
-                tmp,
-                film=film,
-                next_it=np.int64(it + 1),
-                paths=np.int64(stats.paths),
-                rays=np.int64(stats.rays),
-                fingerprint=fingerprint,
-            )
-            os.replace(tmp, checkpoint_path)  # atomic: partial writes never land
-        if on_launch is not None:
-            done_spp = min((schunk + 1) * spl, spp)
-            on_launch(
-                (film / max(done_spp, 1)).reshape(h, w, 3).astype(np.float32),
-                (it + 1) / total_launches,
-            )
-        if progress and schunk == n_sample_chunks - 1:
-            print(f"  pixel block {pblk + 1}/{n_pixel_blocks} done", flush=True)
+            if progress and schunk == n_sample_chunks - 1:
+                print(f"  pixel block {pblk + 1}/{n_pixel_blocks} done", flush=True)
 
     stats.wall_s = _time.perf_counter() - t0
+    if profile_dir is not None:
+        os.makedirs(profile_dir, exist_ok=True)
+        prof.export_chrome_trace(os.path.join(profile_dir, f"render_rank{0 if mesh is None else mesh.index}.json"))
     mean = (film / spp).reshape(h, w, 3)
     return tonemap_quantize(mean), mean.astype(NP_REAL), stats

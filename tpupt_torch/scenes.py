@@ -5,7 +5,7 @@ asset files. The others read OBJ meshes and images from the directory named by
 the ``TPUPT_ASSETS`` environment variable, read when a scene is built (default:
 ``assets/`` beside the package); a missing file raises FileNotFoundError. Scenes
 4 and 6 need only ``.obj`` and ``.hdr`` files; scenes 2, 5 and 7 read PNG/JPEG
-textures, which need PIL. As in the reference package, balls_scene's small
+textures through the port's own readers (``io/png.py``, ``io/jpeg.py``). As in the reference package, balls_scene's small
 spheres come from a fixed-seed numpy generator so renders are reproducible.
 """
 
