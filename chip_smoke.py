@@ -18,12 +18,14 @@ The main path is the forward render (render_image) of:
   4 spp: K1, with their JPEG and PNG textures decoded by the port's own readers
   (the committed stand-ins of tests/torch_data/, each first held bit for bit against
   its .npy, PIL's decode of it);
+- the scene-6 stand-in (32 spp) and bigmesh (25 spp) compiled with bvh=True: their meshes
+  through the stackless BVH walk (K4), once an iteration;
 and the gradient path (render_film_grads: the detached estimator, each trip
 checkpointed and replayed in the backward pass) of the Cornell box at bench.py's
 `grads` configuration (128x128, 32 spp, 4 lanes a pixel) and at 600x600 (4 spp),
 K1 launching in every forward trip and again in its replay; the card's gradients
-are held against the CPU's on a small box scene, on a small mesh (K2) and on 60000
-random triangles (K3).
+are held against the CPU's on a small box scene, on a small mesh (K2, and K4 with
+bvh=True) and on 60000 random triangles (K3).
 Then the sharded phases (parallel/, one process a device): render_image(mesh=...) of
 the Cornell box in a world of 1 over NCCL, bit-equal to the render without a mesh;
 two gloo ranks spawned on the one card (NCCL puts no two ranks of a communicator on
@@ -32,7 +34,9 @@ one rank, render_grads_sharded of a box against render_grads, and a (1 host x 2
 chips) pod mesh against the flat mesh of 2.
 Each kernel is held bit-equal to its plain version on random and camera rays and on
 the bounce rays that follow its camera rays' hits, and is timed on both batches: K1
-at its three table shapes (Cornell, scene 6, balls), K2 and K3 at theirs.
+at its three table shapes (Cornell, scene 6, balls), K2 and K3 at theirs, K4 on both
+mesh shapes beside K2 and K3 on the same rays (the flags flipped on one SceneData). The
+matmul sweep (the reference's MXU path) is held against the dense sweep and timed.
 The repository ships no asset files, so the script writes stand-ins for scene 6's
 meshes (bunny.obj, spot.obj, cow.obj: lumpy spheres of the real meshes' triangle
 counts) and its environment map (grace_probe_latlong.hdr: a synthetic sky) to a
@@ -50,6 +54,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import json
 import math
 import os
@@ -79,6 +84,12 @@ K1_RAY_BYTES = 7 * 4 + 3 * 4  # o, d, time in; t, kind, idx out
 TRI_FLOPS_BOX = 24
 TRI_FLOPS_TRI = 46
 TRI_RAY_BYTES = 7 * 4 + 8 * 4  # o, d, t_in in; t, id, ns xyz, u, v, mat out
+# K4's node visit is K2/K3's box test and its leaf test their triangle test, at the same counts
+BVH_RAY_BYTES = 6 * 4 + 2 * 4  # o, d in; t, idx out
+BVH_NODE_BYTES = 8 * 4  # two float4 a node
+BVH_TRI_BYTES = 9 * 4  # v0, e1, e2 of a triangle row
+MXU_VALID_SHARE = 0.999  # the matmul sweep against the dense sweep (tests/test_bvh.py:129-135)
+MXU_TOL = 1e-4
 
 # bigmesh: bench.py's min(BENCH_SPP, 25); balls: a short render for K1's launch count there;
 # env: the HDR environment-map scene (bench.py's lights_hdr at min(spp, 100)), cut for time
@@ -414,6 +425,109 @@ def time_tri(name, sd, batch, rays):
     return ms, plain_ms, bound_ms, bound_by
 
 
+def bvh_args(sd):
+    """(kernel, plain) callables of K4 on the scene's tree: f(o, d) -> (t, idx)."""
+    from tpupt_torch.ops import bvh_kernel
+    from tpupt_torch.ops.bvh import bvh_closest_tri_plain
+
+    nodes, tris = bvh_kernel.scene_nodes(sd)
+    return (lambda o, d: bvh_kernel.closest_tri_bvh(o, d, 1e-3, 3e38, nodes, tris),
+            lambda o, d, counts=None: bvh_closest_tri_plain(o, d, 1e-3, 3e38, nodes, tris, counts))
+
+
+def check_bvh(sd, rays, label):
+    """K4 vs plain on the card -> (mismatching lanes, max |t| error on hits): t's bits and
+    idx on every lane."""
+    kernel, plain = bvh_args(sd)
+    o, d = rays[0], rays[1]
+    kt, ki = kernel(o, d)
+    pt, pi = plain(o, d)
+    torch.cuda.synchronize()
+    n_bad = int(((kt.view(torch.int32) != pt.view(torch.int32)) | (ki != pi)).sum())
+    hits = pt < 3e38
+    err = float((kt - pt).abs()[hits].max()) if bool(hits.any()) else 0.0
+    log(f"K4 vs plain [{label}]: {o.shape[0]} rays, {sd.bvh_skip.shape[0]} nodes over {sd.n_tris} triangle "
+        f"rows, hit share {float(hits.float().mean()):.4f}, mismatching lanes {n_bad}, max |dt| {err}")
+    return n_bad, err
+
+
+def bvh_batches(sd, cam, dev, seed):
+    """K4's two batches on a scene compiled with bvh=True -> {"camera": rays, "bounce": rays}:
+    the camera rays with an open seed, and the rays that follow their triangle hits
+    (bounce_rays about the face normal of the triangle K4 found; lanes that missed keep
+    their ray and get the seed 0, which K2 and K3 read and K4 does not)."""
+    o, d, _ = camera_rays(cam, dev)
+    t, idx = bvh_args(sd)[0](o, d)
+    n = torch.linalg.cross(sd.tri_e1[idx.long()], sd.tri_e2[idx.long()])
+    return {"camera": (o, d, torch.full_like(t, 3e38)), "bounce": bounce_rays(o, d, t, n, seed)}
+
+
+def time_bvh(shape, batch, sd, rays):
+    """K4's kernel and plain times on one batch, and its bound from the node visits and
+    triangle tests that the plain version counts on these rays (at K2/K3's flops a box
+    and a triangle test) against the ray bytes, the nodes and the triangle rows."""
+    kernel, plain = bvh_args(sd)
+    o, d = rays[0], rays[1]
+    b = o.shape[0]
+    ms = cuda_ms(lambda: kernel(o, d))
+    plain_ms = cuda_ms(lambda: plain(o, d), reps=1, rounds=3)
+    counts = {}
+    t, _ = plain(o, d, counts)
+    flops = counts["box_tests"] * TRI_FLOPS_BOX + counts["tri_tests"] * TRI_FLOPS_TRI
+    nbytes = b * BVH_RAY_BYTES + sd.bvh_skip.shape[0] * BVH_NODE_BYTES + sd.n_tris * BVH_TRI_BYTES
+    bound_ms, bound_by = bound(flops, nbytes)
+    log(f"K4 [{shape}, {batch}] at B={b}, {sd.bvh_skip.shape[0]} nodes, hit share "
+        f"{float((t < 3e38).float().mean()):.4f}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+        f"{bound_ms:.4f} ms ({bound_by}: {counts['box_tests']} node visits = {counts['box_tests'] / b:.2f} a "
+        f"ray, {counts['tri_tests']} triangle tests = {counts['tri_tests'] / b:.2f} a ray, {flops:.3e} flop, "
+        f"{nbytes:.3e} B; bytes alone {1e3 * nbytes / PEAK_BYTES_PER_S:.4f} ms); no single PyTorch call "
+        f"computes it")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, lanes=b,
+                nodes=sd.bvh_skip.shape[0], hit_share=float((t < 3e38).float().mean()), **counts)
+
+
+def routes(sd):
+    """The scene's SceneData with each triangle route's flags: bvh, clusters (flat or
+    two-level, as packed), mxu and sweep."""
+    off = dict(has_tri_bvh=False, has_tri_clusters=False, has_tri_clusters_hbm=False, has_tri_mxu=False)
+    flat = sd.tri_sc_size == 64
+    return {"bvh": dataclasses.replace(sd, **dict(off, has_tri_bvh=True)),
+            "clusters": dataclasses.replace(sd, **dict(off, has_tri_clusters=flat, has_tri_clusters_hbm=not flat)),
+            "mxu": dataclasses.replace(sd, **dict(off, has_tri_mxu=True)),
+            "sweep": dataclasses.replace(sd, **off)}
+
+
+def check_mxu(sd, rays, k2_ms):
+    """The matmul sweep (the reference's MXU path, torch.matmul in full float32) against the
+    dense sweep through closest_hit on one batch: valid masks agree on more than
+    MXU_VALID_SHARE of lanes, t within MXU_TOL where both hit. Timed beside K2."""
+    from tpupt_torch.ops.intersect import closest_hit
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    o, d = rays[0], rays[1]
+    tm = torch.zeros_like(o[:, 0])
+    r = routes(sd)
+    h_mxu = closest_hit(r["mxu"], o, d, tm, 1e-3, 3e38)
+    h_swp = closest_hit(r["sweep"], o, d, tm, 1e-3, 3e38)
+    torch.cuda.synchronize()
+    agree = float((h_mxu.valid == h_swp.valid).float().mean())
+    both = h_mxu.valid & h_swp.valid
+    t_ok = bool(torch.allclose(h_mxu.t[both], h_swp.t[both], rtol=MXU_TOL, atol=MXU_TOL))
+    torch.cuda.reset_peak_memory_stats()
+    mxu_ms = cuda_ms(lambda: closest_hit(r["mxu"], o, d, tm, 1e-3, 3e38), reps=1, rounds=3)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    sweep_ms = cuda_ms(lambda: closest_hit(r["sweep"], o, d, tm, 1e-3, 3e38), reps=1, rounds=3)
+    log(f"matmul sweep (MXU path) [scene 6 stand-in, camera] at B={o.shape[0]}, {sd.n_tris} triangle rows: "
+        f"valid masks agree on {agree:.6f} of lanes (limit > {MXU_VALID_SHARE}), t within {MXU_TOL} where both "
+        f"hit: {t_ok}; closest_hit {mxu_ms:.3f} ms (peak {peak:.2f} GiB), dense sweep {sweep_ms:.3f} ms, K2 "
+        f"{k2_ms:.4f} ms on the same rays")
+    if agree <= MXU_VALID_SHARE or not t_ok:
+        raise SystemExit("chip_smoke: the matmul sweep disagrees with the dense sweep")
+    return dict(agree=agree, t_within_tol=t_ok, ms=mxu_ms, sweep_ms=sweep_ms, k2_ms=k2_ms, peak_gib=peak,
+                lanes=o.shape[0])
+
+
 # ---------------------------------------------------------------------------
 # renders
 # ---------------------------------------------------------------------------
@@ -429,16 +543,13 @@ def image_stats(mean):
 
 def render(label, compiled, cam, counters, kernel_ms):
     """One render_image run with the kernel counts zeroed first -> (mean, stats, launches)."""
-    from tpupt_torch.ops import hit_kernel, tri_kernel
     from tpupt_torch.render.renderer import render_image
 
-    hit_kernel.launches = 0
-    tri_kernel.launches.update(flat=0, two_level=0)
+    zero_counts()
     torch.cuda.synchronize()
     _, mean, st = render_image(compiled, cam, seed=0, progress=False)
     torch.cuda.synchronize()
-    launches = {"K1": hit_kernel.launches, "K2": tri_kernel.launches["flat"],
-                "K3": tri_kernel.launches["two_level"]}
+    launches = read_counts()
     fin, mu, _ = image_stats(mean)
     shares = ", ".join(
         f"{k} {launches[k]} launches (<= {100 * launches[k] * kernel_ms[k] / 1e3 / st.wall_s:.2f}% of wall)"
@@ -452,20 +563,24 @@ def render(label, compiled, cam, counters, kernel_ms):
     for k in counters:
         if launches[k] == 0:
             raise SystemExit(f"chip_smoke: the {label} render never launched {k}")
+    if "K4" in counters and launches["K4"] != st.iterations:  # one closest_hit an iteration
+        raise SystemExit(f"chip_smoke: the {label} render launched K4 {launches['K4']} times in "
+                         f"{st.iterations} iterations")
     if mean.shape != (cam.image_height, cam.image_width, 3) or fin < 0.99 or not mu > 0.0:
         raise SystemExit(f"chip_smoke: the {label} film is wrong: shape {mean.shape}, finite share "
                          f"{fin}, mean {mu}")
     return mean, st, launches
 
 
-def compare_small(label, build, dev, tol_mean=0.01):
+def compare_small(label, build, dev, tol_mean=0.01, bvh=None):
     """A 32 px / 4 spp render on cuda against the same render on the cpu: at least 95% of
-    pixels within rtol 1e-3 / atol 1e-4 and image means within tol_mean."""
+    pixels within rtol 1e-3 / atol 1e-4 and image means within tol_mean. bvh as in
+    Scene.compile."""
     from tpupt_torch.render.renderer import render_image
 
     scene, cam = build(32, 4)
-    _, m_cpu, _ = render_image(scene.compile(device="cpu"), cam, seed=0, progress=False)
-    _, m_gpu, _ = render_image(scene.compile(device=dev), cam, seed=0, progress=False)
+    _, m_cpu, _ = render_image(scene.compile(device="cpu", bvh=bvh), cam, seed=0, progress=False)
+    _, m_gpu, _ = render_image(scene.compile(device=dev, bvh=bvh), cam, seed=0, progress=False)
     close = float(np.isclose(m_gpu, m_cpu, rtol=1e-3, atol=1e-4, equal_nan=True).all(-1).mean())
     _, mean_g, _ = image_stats(m_gpu)
     _, mean_c, se_c = image_stats(m_cpu)
@@ -521,17 +636,18 @@ def random_mesh_scene(width, spp, n=60_000, seed=2):
 
 
 def zero_counts():
-    from tpupt_torch.ops import hit_kernel, tri_kernel
+    from tpupt_torch.ops import bvh_kernel, hit_kernel, tri_kernel
 
     hit_kernel.launches = 0
     tri_kernel.launches.update(flat=0, two_level=0)
+    bvh_kernel.launches = 0
 
 
 def read_counts():
-    from tpupt_torch.ops import hit_kernel, tri_kernel
+    from tpupt_torch.ops import bvh_kernel, hit_kernel, tri_kernel
 
     return {"K1": hit_kernel.launches, "K2": tri_kernel.launches["flat"],
-            "K3": tri_kernel.launches["two_level"]}
+            "K3": tri_kernel.launches["two_level"], "K4": bvh_kernel.launches}
 
 
 def grad_box_scene(width, spp):
@@ -600,16 +716,16 @@ def grads_run(label, compiled, cam, spp, replicas, reps, warm_up):
     return out
 
 
-def compare_grads(label, build, dev, kernel):
+def compare_grads(label, build, dev, kernel, bvh=None):
     """render_film_grads on the card against the CPU (plain kernels) -> numbers. Fails
     unless every gradient field is within GRAD_REL_L1 (relative L1) and 95% of the
-    image's pixels within rtol 1e-3 / atol 1e-4."""
+    image's pixels within rtol 1e-3 / atol 1e-4. bvh as in Scene.compile."""
     from tpupt_torch.render.diff import render_film_grads
 
     scene, cam = build()
-    m_cpu, g_cpu = render_film_grads(scene.compile(device="cpu"), cam, seed=0)
+    m_cpu, g_cpu = render_film_grads(scene.compile(device="cpu", bvh=bvh), cam, seed=0)
     zero_counts()
-    m_gpu, g_gpu, st = render_film_grads(scene.compile(device=dev), cam, seed=0, return_stats=True)
+    m_gpu, g_gpu, st = render_film_grads(scene.compile(device=dev, bvh=bvh), cam, seed=0, return_stats=True)
     torch.cuda.synchronize()
     counts = read_counts()
     close = float(np.isclose(m_gpu.cpu().numpy(), m_cpu.numpy(), rtol=1e-3, atol=1e-4).all(-1).mean())
@@ -620,7 +736,8 @@ def compare_grads(label, build, dev, kernel):
         f"{cam.max_depth}, cuda vs cpu: {close:.4f} of pixels within rtol 1e-3 / atol 1e-4; relative L1 "
         f"error by field {errs} (limit {GRAD_REL_L1}); {kernel} launches {st.launches_forward[kernel]} "
         f"forward + {st.launches_backward[kernel]} in the replays ({st.trips} trips)")
-    if counts[kernel] == 0 or st.launches_backward[kernel] != st.launches_forward[kernel]:
+    if (counts[kernel] == 0 or st.launches_backward[kernel] != st.launches_forward[kernel]
+            or st.launches_forward[kernel] != st.trips):
         raise SystemExit(f"chip_smoke: the {label} gradient run did not launch {kernel} in every trip")
     if close < 0.95 or not finite or any(e > GRAD_REL_L1 for e in errs.values()):
         raise SystemExit(f"chip_smoke: the {label} gradients on the card disagree with the cpu's")
@@ -866,8 +983,8 @@ def main(argv=None) -> int:
 
     # ---- build every library of the port, one compiler per source, all at once ----
     t0 = time.perf_counter()
-    reports = build.build_all(["hit_kernel", "tri_kernel", "native_host"])
-    log(f"build (nvcc x2, g++ x1, in parallel): {time.perf_counter() - t0:.2f} s")
+    reports = build.build_all(["hit_kernel", "tri_kernel", "bvh_kernel", "native_host"])
+    log(f"build (nvcc x3, g++ x1, in parallel): {time.perf_counter() - t0:.2f} s")
     for name, rep in reports.items():
         for line in rep.splitlines():
             if any(w in line for w in ("registers", "smem", "spill")):
@@ -929,6 +1046,14 @@ def run(args, dev, hit_kernel, render_image, cornell_box_scene, balls_scene, eve
         f"{big.data.has_tri_clusters_hbm} (superclusters of {big.data.tri_sc_size})")
     if not (s6.data.has_tri_clusters and big.data.has_tri_clusters_hbm):
         raise SystemExit("chip_smoke: the mesh scenes did not route to the flat and two-level kernels")
+    t0 = time.perf_counter()
+    s6b = s6scene.compile(device=dev, bvh=True)  # the stackless BVH (K4), cluster tables kept
+    bigb = bscene.compile(device=dev, bvh=True)
+    log(f"scene set-up with bvh=True {time.perf_counter() - t0:.2f} s: scene 6 stand-in "
+        f"{s6b.data.bvh_skip.shape[0]} nodes, bigmesh {bigb.data.bvh_skip.shape[0]} nodes")
+    if not (s6b.data.has_tri_bvh and bigb.data.has_tri_bvh):
+        raise SystemExit("chip_smoke: bvh=True did not route the mesh scenes to the stackless BVH")
+    bvh_shapes = {"scene6": (s6b, s6cam), "bigmesh": (bigb, bcam)}
 
     # ---- every kernel against its plain version on the card ----
     balls_scene_, balls_cam = balls_scene(600, SPP["balls"])
@@ -939,8 +1064,8 @@ def run(args, dev, hit_kernel, render_image, cornell_box_scene, balls_scene, eve
         "balls": (balls, balls_cam, (-12.0, 12.0)),
         "env": (env, ecam, (-20.0, 20.0)),
     }
-    bad = {"K1": 0, "K2": 0, "K3": 0}
-    err = {"K1": 0.0, "K2": 0.0, "K3": 0.0}
+    bad = {"K1": 0, "K2": 0, "K3": 0, "K4": 0}
+    err = {"K1": 0.0, "K2": 0.0, "K3": 0.0, "K4": 0.0}
     k1_rays = {}
     for seed, (shape, (compiled, cam, (lo, hi))) in enumerate(k1_shapes.items()):
         sph, quad = hit_kernel.tables(compiled.data)
@@ -964,6 +1089,14 @@ def run(args, dev, hit_kernel, render_image, cornell_box_scene, balls_scene, eve
             n, e = check_tri(name, sd, rays, label)
             bad[name] += n
             err[name] = max(err[name], e)
+    k4_rays = {}
+    for seed, (shape, (compiled, cam)) in enumerate(bvh_shapes.items()):
+        k4_rays[shape] = bvh_batches(compiled.data, cam, dev, seed + 30)
+        for label, rays in (("random", tri_test_rays(compiled.data, 1 << 20, seed + 5, dev)),
+                            *k4_rays[shape].items()):
+            n, e = check_bvh(compiled.data, rays, f"{shape}, {label}")
+            bad["K4"] += n
+            err["K4"] = max(err["K4"], e)
     if any(bad.values()):
         raise SystemExit(f"chip_smoke: kernels disagree with their plain versions: {bad}")
 
@@ -979,6 +1112,22 @@ def run(args, dev, hit_kernel, render_image, cornell_box_scene, balls_scene, eve
     for name, sd in (("K2", s6.data), ("K3", big.data)):
         timing[name] = time_tri(name, sd, "camera", tri_batches[name]["camera"])
         bounce[name] = time_tri(name, sd, "bounce", tri_batches[name]["bounce"])
+    # K4, and K2 (scene 6) and K3 (bigmesh) from the same SceneData with the flags flipped,
+    # on K4's batches (the bounce rays' dead lanes: a seed of 0 for K2 and K3, a walk for K4)
+    k4_times, same_rays = {}, {}
+    for shape, (compiled, _) in bvh_shapes.items():
+        k4_times[shape] = {batch: time_bvh(shape, batch, compiled.data, rays)
+                           for batch, rays in k4_rays[shape].items()}
+        name = "K2" if shape == "scene6" else "K3"
+        clusters = routes(compiled.data)["clusters"]
+        same_rays[shape] = {batch: dict(zip(("kernel", "ms", "plain_ms", "bound_ms", "bound_by"),
+                                            (name, *time_tri(name, clusters, f"{batch}, K4's batch", rays))))
+                            for batch, rays in k4_rays[shape].items()}
+    k4 = k4_times["scene6"]["camera"]
+    timing["K4"] = (k4["ms"], k4["plain_ms"], k4["bound_ms"], k4["bound_by"])
+    b4 = k4_times["scene6"]["bounce"]
+    bounce["K4"] = (b4["ms"], b4["plain_ms"], b4["bound_ms"], b4["bound_by"])
+    mxu = check_mxu(s6b.data, k4_rays["scene6"]["camera"], same_rays["scene6"]["camera"]["ms"])
     kernel_ms = {k: v[0] for k, v in timing.items()}
 
     # ---- the main path: four renders through render_image ----
@@ -998,7 +1147,12 @@ def run(args, dev, hit_kernel, render_image, cornell_box_scene, balls_scene, eve
             raise SystemExit(f"chip_smoke: scene {sid} did not compile its image textures")
         _, _, tl = render(f"scene {sid} ({name}, stand-in textures)", compiled, cam, ["K1"], kernel_ms)
         textured[f"scene{sid}"] = tl["K1"]
-    launches = {"K1": cl["K1"], "K2": s6l["K2"], "K3": bl["K3"]}
+    # the stackless BVH through render_image: K4 once an iteration
+    _, _, s6bl = render("scene 6 stand-in, bvh=True", s6b, s6cam, ["K1", "K4"],
+                        dict(kernel_ms, K1=k1_times["scene6"]["camera"]["ms"]))
+    _, _, bbl = render("bigmesh stand-in, bvh=True", bigb, bcam, ["K4"],
+                       dict(kernel_ms, K4=k4_times["bigmesh"]["camera"]["ms"]))
+    launches = {"K1": cl["K1"], "K2": s6l["K2"], "K3": bl["K3"], "K4": s6bl["K4"]}
     k1_launches = {"cornell": cl["K1"], "scene6": s6l["K1"], "balls": ball["K1"], "env": el["K1"]}
     for shape, n in k1_launches.items():  # which shape K1's time above its bound costs the most
         over = {batch: n * (v["ms"] - v["bound_ms"]) for batch, v in k1_times[shape].items()}
@@ -1008,6 +1162,7 @@ def run(args, dev, hit_kernel, render_image, cornell_box_scene, balls_scene, eve
     # ---- small renders on the card against the same renders on the cpu ----
     m_cpu, se_c = compare_small("cornell", cornell_box_scene, dev)
     compare_small("mesh (5000 triangles, flat cluster route)", small_mesh_scene, dev)
+    compare_small("mesh (5000 triangles, BVH route)", small_mesh_scene, dev, bvh=True)
     fin_g, mean_g, se_g = image_stats(m_cornell)
     fin_c, mean_c, _ = image_stats(m_cpu)
     tol = 5.0 * math.sqrt(se_g * se_g + se_c * se_c)
@@ -1037,6 +1192,8 @@ def run(args, dev, hit_kernel, render_image, cornell_box_scene, balls_scene, eve
                                                lambda: small_mesh_scene(16, 8), dev, "K2")
     grads["two-level mesh, cuda vs cpu"] = compare_grads(
         "mesh (60000 random triangles, two-level cluster route)", lambda: random_mesh_scene(16, 8), dev, "K3")
+    grads["bvh mesh, cuda vs cpu"] = compare_grads(
+        "mesh (5000 triangles, BVH route)", lambda: small_mesh_scene(16, 8), dev, "K4", bvh=True)
 
     # ---- the sharded phases: a world of 1 over NCCL, then two gloo ranks on the one card ----
     sharded = {"nccl, world of 1": nccl_world_of_one(c_compiled, ccam, m_cornell, st_cornell)}
@@ -1056,6 +1213,7 @@ def run(args, dev, hit_kernel, render_image, cornell_box_scene, balls_scene, eve
         "K1": ("K1 closest_sphere_quad", "tpupt_torch/csrc/hit_kernel.cu", "tpupt/ops/pallas_hit.py:35"),
         "K2": ("K2 closest_tri_flat", "tpupt_torch/csrc/tri_kernel.cu", "tpupt/ops/pallas_tri.py:300"),
         "K3": ("K3 closest_tri_two_level", "tpupt_torch/csrc/tri_kernel.cu", "tpupt/ops/pallas_tri.py:632"),
+        "K4": ("K4 closest_tri_bvh", "tpupt_torch/csrc/bvh_kernel.cu", "tpupt/ops/bvh.py:362"),
     }
     kernels = []
     for k, (name, source, replaces) in meta.items():
@@ -1076,7 +1234,11 @@ def run(args, dev, hit_kernel, render_image, cornell_box_scene, balls_scene, eve
                                        for shape, v in k1_times.items()})
         # launches on each path: renders (the sharded ones a rank), and gradient runs'
         # forward trips and replays
-        paths = dict(k1_launches, **textured) if k == "K1" else {"K2": {"scene6": s6l["K2"]}, "K3": {"bigmesh": bl["K3"]}}[k]
+        if k == "K1":
+            paths = dict(k1_launches, **textured, **{"scene6 bvh": s6bl["K1"]})
+        else:
+            paths = {"K2": {"scene6": s6l["K2"]}, "K3": {"bigmesh": bl["K3"]},
+                     "K4": {"scene6 bvh": s6bl["K4"], "bigmesh bvh": bbl["K4"]}}[k]
         for label, run_ in sharded.items():
             for what, v in run_.items():
                 v = v.get("rank 0", v) if isinstance(v, dict) else {}
@@ -1087,6 +1249,10 @@ def run(args, dev, hit_kernel, render_image, cornell_box_scene, balls_scene, eve
                 paths[f"{label} forward"] = g["launches_forward"][k]
                 paths[f"{label} replay"] = g["launches_replay"][k]
         kernels[-1]["launches_by_path"] = paths
+        if k == "K4":  # both shapes, and K2 / K3 on the same batches; the matmul sweep beside K2
+            kernels[-1].update(shapes={shape: dict(v, launches=paths[f"{shape} bvh"])
+                                       for shape, v in k4_times.items()},
+                               clusters_on_the_same_rays=same_rays, mxu_path=mxu)
     return kernels, grads, sharded
 
 
@@ -1163,7 +1329,7 @@ def profile_render(out_dir, label, render_image, compiled, cam):
     n_kernels = sum(e.count for e in kernels)
     ours = {name: sum(e.self_device_time_total for e in kernels if name in e.key)
             for name in ("closest_sphere_quad_kernel", "closest_tri_flat_kernel",
-                         "closest_tri_two_level_kernel")}
+                         "closest_tri_two_level_kernel", "closest_tri_bvh_kernel")}
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:5]
     log(f"profile {label} {cam.image_width}x{cam.image_height} 2 spp (under the profiler): wall "
         f"{wall:.3f} s, {st.iterations} iterations, device kernel time {dev_us / 1e3:.3f} ms "

@@ -165,8 +165,9 @@ def test_large_mesh_routes_to_two_level():
     assert cp > TK.FLAT_MAX_CLUSTERS and cp % 16 == 0
     assert sd.tri_scl.shape[0] >= cp // 16 and sd.tri_geo.shape == (cp, 10, 64)
     assert not s.compile(device="cpu", bvh=False).data.has_tri_clusters
-    with pytest.raises(NotImplementedError, match="stackless BVH"):
-        s.compile(device="cpu", bvh=True)
+    bvh = s.compile(device="cpu", bvh=True).data  # the stackless BVH, two-level tables kept
+    assert bvh.has_tri_bvh and not (bvh.has_tri_clusters or bvh.has_tri_clusters_hbm)
+    assert bvh.tri_sc_size == 16 and bvh.tri_cl.shape == sd.tri_cl.shape
 
 
 def _rays(b, seed):

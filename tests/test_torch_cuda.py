@@ -16,8 +16,8 @@ import numpy as np
 import pytest
 import torch
 
-from tpupt_torch.ops import hit_kernel, tri_kernel
-from tpupt_torch.ops.bvh import build_tri_bvh_sah
+from tpupt_torch.ops import bvh_kernel, hit_kernel, tri_kernel
+from tpupt_torch.ops.bvh import build_tri_bvh, build_tri_bvh_sah, bvh_closest_tri_plain
 from tpupt_torch.render.camera import Camera
 from tpupt_torch.render.renderer import render_image
 from tpupt_torch.scene.builder import Diffuse, Light, Scene
@@ -346,6 +346,91 @@ def test_tri_kernel_argument_checks(cuda):
         tri_kernel.closest_tri_two_level(o, d, t_in.double(), 1e-3, scl, cl, geo, attr, 16)
 
 
+# ---- K4, the stackless BVH walk ----
+
+
+def _bvh_tables(n, dev, seed=0, morton=False):
+    """(nodes, tris) of an n-triangle random soup in its tree's order (binned SAH, or Morton)."""
+    rng = np.random.default_rng(seed)
+    v0 = (rng.normal(size=(n, 3)) * 2.0).astype(np.float32)
+    e1, e2 = ((rng.normal(size=(n, 3)) * 0.2).astype(np.float32) for _ in range(2))
+    order, nodes = build_tri_bvh(v0, e1, e2) if morton else build_tri_bvh_sah(v0, e1, e2)[:2]
+    to = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+    return (tuple(to(nodes[k]) for k in ("bmin", "bmax", "skip", "start", "count")),
+            tuple(to(a[order]) for a in (v0, e1, e2)))
+
+
+def _assert_bvh_bit_equal(nodes, tris, o, d, tmin=1e-3, tmax=3e38):
+    """One launch of K4 against its plain version -> the plain version's t."""
+    before = bvh_kernel.launches
+    kt, ki = bvh_kernel.closest_tri_bvh(o, d, tmin, tmax, nodes, tris)
+    pt, pi = bvh_closest_tri_plain(o, d, tmin, tmax, nodes, tris)
+    torch.cuda.synchronize()
+    assert bvh_kernel.launches == before + 1
+    assert torch.equal(kt.view(torch.int32), pt.view(torch.int32)) and torch.equal(ki, pi)
+    return pt
+
+
+@pytest.mark.parametrize("b", [1, 255, 100_003])
+@pytest.mark.parametrize("n,morton", [(3000, False), (60_000, False), (3000, True)])
+def test_bvh_kernel_bit_equal_to_plain(cuda, n, morton, b):
+    nodes, tris = _bvh_tables(n, cuda, morton=morton)
+    o, d, _ = _rays(b, 12, -3.0, 3.0, cuda)
+    if b > 1000:  # edge lanes: axis-aligned (flushed 1/d), signed zeros, NaN, infinite origin
+        d[:8] = torch.tensor([[0.0, 0.0, 1.0], [0.0, -0.0, -1.0], [1.0, 0.0, 0.0], [-0.0, 1.0, 0.0],
+                              [float("nan"), 0.0, 1.0], [0.0, 0.0, 0.0], [1e-30, -1.0, 0.0],
+                              [0.6, 0.8, -0.0]], device=cuda)
+        o[8] = float("nan")
+        o[9, 0] = float("inf")
+    pt = _assert_bvh_bit_equal(nodes, tris, o, d)
+    if b > 1000:
+        assert (pt < 3e38).float().mean() > 0.05
+        assert not bool((pt[[4, 8]] < 3e38).any())  # NaN rays miss
+    _assert_bvh_bit_equal(nodes, tris, o, d, tmin=0.5, tmax=2.0)  # a window of t
+
+
+def test_bvh_kernel_mesh_rays(cuda):
+    """K4 on the camera rays of a mesh scene compiled with bvh=True and on the rays that
+    follow their hits; on a scene without the tree (one dummy node) every ray misses."""
+    from chip_smoke import bounce_rays, camera_rays
+
+    scene, cam = _mesh_scene(64, 1)
+    sd = scene.compile(device=cuda, bvh=True).data
+    assert sd.has_tri_bvh and sd.bvh_skip.shape[0] > 1000
+    nodes, tris = bvh_kernel.scene_nodes(sd)
+    o, d, _ = camera_rays(cam, cuda)
+    pt = _assert_bvh_bit_equal(nodes, tris, o, d)
+    assert (pt < 3e38).float().mean() > 0.3
+    n = sd.tri_n0[bvh_kernel.closest_tri_bvh(o, d, 1e-3, 3e38, nodes, tris)[1].long()]
+    no, nd, _ = bounce_rays(o, d, pt, n, 7)
+    _assert_bvh_bit_equal(nodes, tris, no, nd)
+    empty = cornell_box_scene(16, 1)[0].compile(device=cuda).data
+    et = _assert_bvh_bit_equal(*bvh_kernel.scene_nodes(empty), o, d)
+    assert not bool((et < 3e38).any())
+
+
+def test_bvh_kernel_argument_checks(cuda):
+    nodes, tris = _bvh_tables(500, cuda)
+    o, d, _ = _rays(64, 1, -3.0, 3.0, cuda)
+    with pytest.raises(ValueError, match="is on"):
+        bvh_kernel.closest_tri_bvh(o, d.cpu(), 1e-3, 3e38, nodes, tris)
+    with pytest.raises(TypeError, match="float32"):
+        bvh_kernel.closest_tri_bvh(o.double(), d.double(), 1e-3, 3e38, nodes, tris)
+    with pytest.raises(ValueError, match="no gradient"):
+        bvh_kernel.closest_tri_bvh(o, d, 1e-3, 3e38, nodes, (tris[0].requires_grad_(), *tris[1:]))
+
+
+def test_small_bvh_render_matches_cpu(cuda):
+    scene, cam = _mesh_scene(32, 4)
+    _, m_cpu, _ = render_image(scene.compile(device="cpu", bvh=True), cam, progress=False)
+    before = bvh_kernel.launches
+    _, m_gpu, stats = render_image(scene.compile(device=cuda, bvh=True), cam, progress=False)
+    assert bvh_kernel.launches - before == stats.iterations > 0
+    close = np.isclose(m_gpu, m_cpu, rtol=1e-3, atol=1e-4, equal_nan=True).all(-1).mean()
+    assert close >= 0.95
+    np.testing.assert_allclose(np.nanmean(m_gpu), np.nanmean(m_cpu), rtol=1e-2)
+
+
 def _mesh_scene(width, spp):
     """A wavy 5000-triangle height field under a quad light."""
     n = 50
@@ -392,22 +477,24 @@ def _grad_box_scene():
     return s, cam
 
 
-@pytest.mark.parametrize("which", ["box", "mesh", "two_level"])
+@pytest.mark.parametrize("which", ["box", "mesh", "two_level", "bvh"])
 def test_grads_match_cpu(cuda, which):
     """render_film_grads on the card against the CPU (plain kernels): per field a
     relative L1 error of at most 2e-2 (an ulp of the card's transcendentals flips a
     rare path, and the gathers' backward adds with atomics on the card), and the
     image on at least 95% of pixels within rtol 1e-3 / atol 1e-4. mesh runs K2 in
-    every trip and its replay, two_level (60000 triangles) K3."""
+    every trip and its replay, two_level (60000 triangles) K3, bvh (the mesh compiled
+    with bvh=True) K4."""
     from tpupt_torch.render.diff import render_film_grads
 
-    scene, cam = {"box": _grad_box_scene, "mesh": lambda: _mesh_scene(16, 8),
+    scene, cam = {"box": _grad_box_scene, "mesh": lambda: _mesh_scene(16, 8), "bvh": lambda: _mesh_scene(16, 8),
                   "two_level": lambda: random_mesh_scene(16, 8)}[which]()
-    m_cpu, g_cpu = render_film_grads(scene.compile(device="cpu"), cam, seed=0)
+    bvh = True if which == "bvh" else None
+    m_cpu, g_cpu = render_film_grads(scene.compile(device="cpu", bvh=bvh), cam, seed=0)
     before = hit_kernel.launches
-    m_gpu, g_gpu, st = render_film_grads(scene.compile(device=cuda), cam, seed=0, return_stats=True)
+    m_gpu, g_gpu, st = render_film_grads(scene.compile(device=cuda, bvh=bvh), cam, seed=0, return_stats=True)
     assert st.launches_forward["K1"] == st.launches_backward["K1"] == st.trips > 0
-    kernel = {"mesh": "K2", "two_level": "K3"}.get(which)
+    kernel = {"mesh": "K2", "two_level": "K3", "bvh": "K4"}.get(which)
     if kernel:
         assert st.launches_forward[kernel] == st.launches_backward[kernel] == st.trips
     assert hit_kernel.launches - before == 2 * st.trips
@@ -449,7 +536,7 @@ def recorded_kernel_outputs(monkeypatch, compiled, cam, module=hit_kernel, name=
 
     def spy(*args, **kwargs):
         out = wrapped(*args, **kwargs)
-        tensors = (*out[:2], *out[2].values()) if isinstance(out[2], dict) else out
+        tensors = (*out[:2], *out[2].values()) if len(out) > 2 and isinstance(out[2], dict) else out
         calls.append(tuple(x.clone() for x in tensors))
         return out
 
@@ -460,19 +547,23 @@ def recorded_kernel_outputs(monkeypatch, compiled, cam, module=hit_kernel, name=
     return calls[:n], calls[n:][::-1], st
 
 
-@pytest.mark.parametrize("which", ["K1", "K2", "K3"])
+@pytest.mark.parametrize("which", ["K1", "K2", "K3", "K4"])
 def test_checkpoint_replay_bits_equal_on_the_card(cuda, monkeypatch, which):
     """A kernel's outputs in each forward trip and in its replay in the backward pass are
-    the same bits (K1 is deterministic; K2 and K3 zero their packet counter at every
-    launch), and it launches once for each."""
+    the same bits (K1 and K4 are deterministic; K2 and K3 zero their packet counter at
+    every launch), and it launches once for each."""
+    bvh = None
     if which == "K1":
         scene, cam = cornell_box_scene(16, 4)
         cam.max_depth = 12
         spy = dict(module=hit_kernel, name="closest_sphere_quad")
+    elif which == "K4":
+        scene, cam = _mesh_scene(16, 4)
+        bvh, spy = True, dict(module=bvh_kernel, name="closest_tri_bvh")
     else:
         scene, cam = _mesh_scene(16, 4) if which == "K2" else random_mesh_scene(16, 4)
         spy = dict(module=tri_kernel, name="closest_tri")
-    fwd, replay, st = recorded_kernel_outputs(monkeypatch, scene.compile(device=cuda), cam, **spy)
+    fwd, replay, st = recorded_kernel_outputs(monkeypatch, scene.compile(device=cuda, bvh=bvh), cam, **spy)
     assert len(fwd) == len(replay) == st.trips == st.launches_forward[which] == st.launches_backward[which]
     for a, b in zip(fwd, replay):
         for x, y in zip(a, b):

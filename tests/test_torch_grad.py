@@ -211,7 +211,7 @@ def test_film_grads_match_render_grads(which):
     rad1, g1, rays1 = D.render_grads(compiled, cam, ids, spp=4, seed=0, return_stats=True)
     mean2, g2, st = D.render_film_grads(compiled, cam, spp=4, seed=0, replicas=2, return_stats=True)
     assert rays1 == st.rays and st.lanes == 2 * len(ids) and st.trips > 0
-    assert st.launches_forward == st.launches_backward == {"K1": 0, "K2": 0, "K3": 0}  # plain on the CPU
+    assert st.launches_forward == st.launches_backward == {"K1": 0, "K2": 0, "K3": 0, "K4": 0}  # plain on the CPU
     np.testing.assert_allclose(mean2.reshape(-1, 3).numpy(), rad1.numpy(), rtol=1e-5, atol=1e-6)
     for k in g1:
         assert bool(torch.isfinite(g2[k]).all()), k

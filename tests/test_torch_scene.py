@@ -14,7 +14,7 @@ import pytest
 import torch
 
 import tpupt.scenes as JSCENES_MODULE
-from chip_smoke import _write_hdr
+from chip_smoke import write_stand_in_assets
 from tpupt.scene import builder as JB
 from tpupt.scenes import SCENES as JSCENES
 from tpupt_torch.ops.tri_kernel import from_reference_packing
@@ -43,25 +43,31 @@ def _assert_same(tsd, jsd):
 
 @pytest.fixture
 def stand_in_assets(tmp_path, monkeypatch):
-    """The committed JPEG and PNG fixtures and a synthetic .hdr sky in a temp dir, which
-    both packages read as their asset directory (the reference reads it at import)."""
+    """The committed JPEG and PNG fixtures, scene 6's stand-in meshes and a synthetic
+    .hdr sky in a temp dir, which both packages read as their asset directory (the
+    reference reads it at import)."""
     for name in ("earthmap.jpg", "envmap.jpg", "bricks/color.png", "bricks/normal.png"):
         (tmp_path / name).parent.mkdir(parents=True, exist_ok=True)
         shutil.copy(DATA / name, tmp_path / name)
-    _write_hdr(str(tmp_path / "grace_probe_latlong.hdr"))
+    write_stand_in_assets(str(tmp_path))  # scene 6's OBJ stand-ins and the .hdr sky
     monkeypatch.setenv("TPUPT_ASSETS", str(tmp_path))
     monkeypatch.setattr(JSCENES_MODULE, "ASSETS", str(tmp_path))
     return tmp_path
 
 
-@pytest.mark.parametrize("sid", [1, 2, 3, 4, 5, 7])
+@pytest.mark.parametrize("sid", [1, 2, 3, 4, 5, 6, 7])
 def test_compile_matches_reference(sid, stand_in_assets):
     """Scenes 2, 5 and 7 read JPEG and PNG textures, which the reference decodes with
-    PIL and the port with its own readers; scene 4 reads the .hdr sky."""
+    PIL and the port with its own readers; scene 4 reads the .hdr sky; scene 6 reads
+    the lumpy-sphere OBJ stand-ins of chip_smoke.py, and the reference compiles it on
+    the CPU to its stackless BVH, which the port takes with bvh=True (the BVH nodes,
+    the MXU rows and the cluster tables are compared with the rest)."""
     _, jbuild = JSCENES[sid]
     _, tbuild = TSCENES[sid]
     jc = jbuild(16, 4)[0].compile()
-    tc = tbuild(16, 4)[0].compile(device="cpu")
+    tc = tbuild(16, 4)[0].compile(device="cpu", bvh=True if sid == 6 else None)
+    if sid == 6:
+        assert jc.data.has_tri_bvh and tc.data.n_tris > 16000 and tc.data.tri_ca.shape[0] == tc.data.n_tris
     assert tc.has_lights == jc.has_lights
     _assert_same(tc.data, jc.data)
     if sid in (2, 5, 7):
@@ -122,8 +128,9 @@ def test_scene_data_from_numpy(tmp_path):
     static = {n: getattr(jsd, n) for n in ("use_pallas_hit", "has_tri_bvh", *TD.STATIC_FIELDS)}
     tsd = scene_data_from_numpy(fields, static, device="cpu")
     _assert_same(tsd, jsd)
-    with pytest.raises(NotImplementedError):
-        scene_data_from_numpy(fields, dict(static, has_tri_bvh=True), device="cpu")
+    # the BVH and matmul-sweep flags are ported: a reference SceneData with either converts
+    for flag in ("has_tri_bvh", "has_tri_mxu"):
+        assert getattr(scene_data_from_numpy(fields, dict(static, **{flag: True}), device="cpu"), flag)
     with pytest.raises(KeyError):
         scene_data_from_numpy({"sph_r": fields["sph_r"]}, static, device="cpu")
 
@@ -148,8 +155,9 @@ def test_unported_inputs_raise(tmp_path, monkeypatch):
     s.add_mesh(mesh, TB.Diffuse((0.5, 0.5, 0.5)))
     sd = s.compile(device="cpu").data  # 64 triangles: the cluster route
     assert sd.has_tri_clusters and sd.tri_geo.shape == (64, 10, 64)
-    with pytest.raises(NotImplementedError, match="stackless BVH"):
-        s.compile(device="cpu", bvh=True)
+    sd = s.compile(device="cpu", bvh=True).data  # the stackless BVH, cluster tables kept
+    assert sd.has_tri_bvh and not sd.has_tri_clusters and sd.tri_geo.shape == (64, 10, 64)
+    assert int(sd.bvh_skip[0]) == sd.bvh_skip.shape[0] > 1
 
     monkeypatch.setenv("TPUPT_ASSETS", str(tmp_path))
     scene, _ = TSCENES[2][1](16, 4)

@@ -1,4 +1,5 @@
-"""Vector math over float32 tensors: ``[..., 3]`` arrays and component 3-tuples.
+"""Vector math over REAL tensors (float32, or float64 under the oracle): ``[..., 3]``
+arrays and component 3-tuples.
 
 Counterpart of ``tpupt/core/linalg.py``. Sums over xyz are written out left to
 right (x + y) + z so their rounding is fixed and matches the reference's.
@@ -6,7 +7,6 @@ right (x + y) + z so their rounding is fixed and matches the reference's.
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 
 from .dtypes import NP_REAL
@@ -22,6 +22,12 @@ def _bound(x, value):
     if t is None:
         t = _bounds[key] = torch.tensor(value, dtype=x.dtype, device=x.device)
     return t
+
+
+def signed(neg, value, like):
+    """-value where neg, else value, in like's dtype (torch.where of two Python scalars
+    would give the default float32 even under the f64 oracle)."""
+    return torch.where(neg, _bound(like, -value), _bound(like, value))
 
 
 def clamp_min(x, lo):
@@ -162,5 +168,6 @@ def to_world3(n, v):
 
 
 def f32(x) -> float:
-    """A Python float holding x rounded to float32 (a scalar that rounds like the reference's)."""
-    return float(np.float32(x))
+    """A Python float holding x rounded to REAL: float32, or float64 under the oracle (a
+    scalar that rounds like the reference's NP_REAL constants)."""
+    return float(NP_REAL(x))

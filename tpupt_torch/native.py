@@ -1,4 +1,4 @@
-"""The host library (``csrc/native_host.cpp``: OBJ parse, binned-SAH build), loaded via ctypes.
+"""The host library (``csrc/native_host.cpp``: OBJ parse, Morton and binned-SAH builds), loaded via ctypes.
 
 Counterpart of ``tpupt/native``. The library is built with g++ at first use into
 ``tpupt_torch/_build/`` (build.py). Every entry point returns None when the
@@ -37,6 +37,12 @@ def _load():
             fn.argtypes = [_P]
         lib.obj_copy.argtypes = [_P] * 5
         lib.obj_free.argtypes = [_P]
+        lib.bvh_build.restype = _P
+        lib.bvh_build.argtypes = [_P, _P, _P, ctypes.c_int64]
+        lib.bvh_num_nodes.restype = ctypes.c_int64
+        lib.bvh_num_nodes.argtypes = [_P]
+        lib.bvh_copy.argtypes = [_P] * 7
+        lib.bvh_free.argtypes = [_P]
         lib.bvh_build_sah.restype = _P
         lib.bvh_build_sah.argtypes = [_P, _P, _P, ctypes.c_int64]
         for fn in (lib.bvh_num_nodes_sah, lib.bvh_num_clusters):
@@ -122,3 +128,29 @@ def build_tri_bvh_sah(v0: np.ndarray, e1: np.ndarray, e2: np.ndarray):
         return order, nodes, clusters
     finally:
         lib.bvh_free_sah(h)
+
+
+def build_tri_bvh(v0: np.ndarray, e1: np.ndarray, e2: np.ndarray):
+    """Native Morton build -> (order, nodes) of ops.bvh.build_tri_bvh, or None."""
+    lib = _load()
+    if lib is None:
+        return None
+    v0, e1, e2 = (np.ascontiguousarray(a, np.float32) for a in (v0, e1, e2))
+    n = v0.shape[0]
+    h = lib.bvh_build(_ptr(v0), _ptr(e1), _ptr(e2), n)
+    if not h:
+        return None
+    try:
+        m = lib.bvh_num_nodes(h)
+        order = np.empty(n, np.int32)
+        nodes = dict(
+            bmin=np.empty((m, 3), np.float32),
+            bmax=np.empty((m, 3), np.float32),
+            skip=np.empty(m, np.int32),
+            start=np.empty(m, np.int32),
+            count=np.empty(m, np.int32),
+        )
+        lib.bvh_copy(h, _ptr(order), *(_ptr(nodes[k]) for k in ("bmin", "bmax", "skip", "start", "count")))
+        return order, nodes
+    finally:
+        lib.bvh_free(h)

@@ -344,7 +344,7 @@ def _principled_eval(sh: Shade, n, v_world, l_world):
     fss90 = 0.5 * rr
     f_ss = _lerp(1.0, fss90, fl) * _lerp(1.0, fss90, fv)
     svz = lz + vz
-    svz = torch.where(torch.abs(svz) > 1e-12, svz, torch.where(svz < 0.0, -1e-12, 1e-12))
+    svz = torch.where(torch.abs(svz) > 1e-12, svz, la.signed(svz < 0.0, 1e-12, svz))
     ss = 1.25 * (f_ss * (1.0 / svz - 0.5) + 0.5)
     subsurface = params[..., D.P_SUBSURFACE]
     k_diff = _lerp(f_d + f_retro, ss, subsurface) / PI
@@ -376,7 +376,7 @@ def _principled_eval(sh: Shade, n, v_world, l_world):
     refr_denom = rd * rd
     fac_refl = diel_f * g_ggx * d_ggx / denom4
     pvz = lz * vz
-    pvz = torch.where(torch.abs(pvz) > 1e-12, pvz, torch.where(pvz < 0.0, -1e-12, 1e-12))
+    pvz = torch.where(torch.abs(pvz) > 1e-12, pvz, la.signed(pvz < 0.0, 1e-12, pvz))
     term1 = torch.abs((l_dot_h * v_dot_h) / pvz)
     term2 = (eta_o * eta_o) / la.clamp_min(refr_denom, 1e-15)
     fac_refr = term1 * term2 * (1.0 - diel_f) * g_ggx * d_ggx

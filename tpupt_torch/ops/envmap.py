@@ -23,7 +23,7 @@ import numpy as np
 import torch
 
 from ..core import linalg as la
-from ..core.dtypes import NP_REAL
+from ..core.dtypes import NP_REAL, REAL
 from .gather import take_rows
 from .texture import eval_texture
 
@@ -87,8 +87,8 @@ def sample_env_light(sd, u1, u2):
     w, h = sd.env_wh_host
     j = torch.div(texel, w, rounding_mode="floor")
     i = texel - j * w
-    theta = (j.to(torch.float32) + 0.5) / float(h) * PI
-    phi = (i.to(torch.float32) + 0.5) / float(w) * (2.0 * PI) - PI
+    theta = (j.to(REAL) + 0.5) / float(h) * PI
+    phi = (i.to(REAL) + 0.5) / float(w) * (2.0 * PI) - PI
     st = torch.sin(theta)
     return (st * torch.cos(phi), torch.cos(theta), st * torch.sin(phi))
 

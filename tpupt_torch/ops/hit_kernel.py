@@ -21,6 +21,7 @@ import ctypes
 import torch
 
 from ..core import linalg as la
+from ..core.dtypes import REAL
 
 BIG = la.BIG
 KIND_SPHERE = 0
@@ -152,9 +153,10 @@ def _check(o, d, time, sph, quad):
             f"closest_sphere_quad: need sph [7,S] and quad [16,Q]; got "
             f"{tuple(sph.shape)}, {tuple(quad.shape)}"
         )
+    real = torch.float32 if o.device.type == "cuda" else REAL  # the kernel is float32
     for name, x in (("o", o), ("d", d), ("time", time), ("sph", sph), ("quad", quad)):
-        if x.dtype != torch.float32:
-            raise TypeError(f"closest_sphere_quad: {name} must be float32, got {x.dtype}")
+        if x.dtype != real:
+            raise TypeError(f"closest_sphere_quad: {name} must be {real}, got {x.dtype}")
         if x.device != o.device:
             raise ValueError(f"closest_sphere_quad: {name} is on {x.device}, o on {o.device}")
         if not x.is_contiguous():
@@ -217,7 +219,7 @@ def _launch(o, d, time, sph, quad, tmin):
 
 def _inv(dc):
     """Sign-preserving flush |d| < 1e-20 -> +-1e-20, then 1/d."""
-    return 1.0 / torch.where(torch.abs(dc) < 1e-20, torch.where(dc < 0, -1e-20, 1e-20), dc)
+    return 1.0 / torch.where(torch.abs(dc) < 1e-20, la.signed(dc < 0, 1e-20, dc), dc)
 
 
 def closest_sphere_quad_plain(o, d, time, sph, quad, tmin=1e-3, counts=None, cull=True):
@@ -239,7 +241,7 @@ def closest_sphere_quad_plain(o, d, time, sph, quad, tmin=1e-3, counts=None, cul
     ox, oy, oz = o[:, 0:1], o[:, 1:2], o[:, 2:3]
     dx, dy, dz = d[:, 0:1], d[:, 1:2], d[:, 2:3]
     tm = time[:, None]
-    best_t = torch.full((b,), BIG, dtype=torch.float32, device=o.device)
+    best_t = torch.full((b,), BIG, dtype=o.dtype, device=o.device)
     best_k = torch.zeros(b, dtype=torch.int32, device=o.device)
     best_i = torch.zeros(b, dtype=torch.int32, device=o.device)
     n_s, n_q = real_rows(sph, quad)

@@ -1,11 +1,13 @@
 """Ray-scene closest hit over the SoA geometry tables (counterpart of ``tpupt/ops/intersect.py``).
 
 Spheres and quads always go through ``ops/hit_kernel.closest_sphere_quad`` (the
-CUDA kernel on the GPU, its plain version on the CPU). Meshes compiled to
-clusters go through ``ops/tri_kernel.closest_tri`` (the flat or two-level cluster
-kernel), seeded with the sphere/quad winner; other triangle tables run the dense
-Möller–Trumbore sweep. The reference's stackless-BVH and MXU triangle paths wait
-for their ports (ROADMAP).
+CUDA kernel on the GPU, its plain version on the CPU). Triangles take the route
+the scene's flags pick, in the reference's order: the cluster kernels
+(``ops/tri_kernel.closest_tri``, flat or two-level, seeded with the sphere/quad
+winner), the stackless BVH (``ops/bvh_kernel.closest_tri_bvh``, K4), the matmul
+sweep (the reference's MXU path: Möller–Trumbore's determinants as products of
+coefficient rows and ray features, ``torch.matmul`` in full float32), or the dense
+Möller–Trumbore sweep.
 
 Intersection math matches the reference:
   sphere   sphere.rs:64-100  (moving center lerped by time)
@@ -22,7 +24,7 @@ import torch
 
 from ..core import linalg as la
 from ..scene import data as D
-from . import hit_kernel, tri_kernel
+from . import bvh_kernel, hit_kernel, tri_kernel
 from .texture import eval_texture
 
 BIG = la.BIG
@@ -31,6 +33,7 @@ KIND_QUAD = D.GEOM_QUAD
 KIND_TRI = D.GEOM_TRI
 
 _TRI_BLOCK = 64  # triangles per step of the dense sweep
+_MXU_BLOCK_BYTES = 1 << 30  # one [blk, B] product block of the matmul sweep stays below this
 _TWO_PI = 2.0 * math.pi
 
 
@@ -78,14 +81,50 @@ def _tri_block(sd, base, n, ox, oy, oz, dx, dy, dz, tmin, tmax):
     return torch.where(miss, BIG, t)
 
 
-def _tri_sweep(sd, o, d, tmin, tmax):
-    """Closest triangle per ray -> (t [B], idx [B] int32); ties go to the lower index."""
-    ox, oy, oz = o[:, 0:1], o[:, 1:2], o[:, 2:3]
-    dx, dy, dz = d[:, 0:1], d[:, 1:2], d[:, 2:3]
+def _tri_block_mxu(sd, base, n, phi, tmin, tmax):
+    """Möller–Trumbore as matmuls for triangles [base, base+n) -> [n, B] (BIG on miss).
+
+    The four determinants are linear in the ray features phi = [d, o, o x d, 1]
+    (``ray_features``): a = d.(e2 x e1), u a = (o x d).e2 - d.(e2 x v0), v a =
+    -(o x d).e1 - d.(v0 x e1), t a = o.n - v0.n, with the coefficient rows
+    tri_ca/cu/cv/ct [T,10] made by the compiler. The epilogue and miss tests are
+    _tri_block's.
+    """
+    a = torch.matmul(sd.tri_ca[base : base + n], phi)
+    u = torch.matmul(sd.tri_cu[base : base + n], phi)
+    v = torch.matmul(sd.tri_cv[base : base + n], phi)
+    t = torch.matmul(sd.tri_ct[base : base + n], phi)
+    f = 1.0 / torch.where(torch.abs(a) < 1e-8, 1.0, a)
+    u, v, t = f * u, f * v, f * t
+    miss = (
+        (torch.abs(a) < 1e-8)
+        | (u < 0.0)
+        | (u > 1.0)
+        | (v < 0.0)
+        | (u + v > 1.0)
+        | (t <= tmin)
+        | (t >= tmax)
+    )
+    return torch.where(miss, BIG, t)
+
+
+def ray_features(ox, oy, oz, dx, dy, dz):
+    """phi [10, B] for the matmul sweep: [d, o, o x d, 1]."""
+    mx = oy * dz - oz * dy
+    my = oz * dx - ox * dz
+    mz = ox * dy - oy * dx
+    return torch.stack([dx, dy, dz, ox, oy, oz, mx, my, mz, torch.ones_like(ox)], dim=0)
+
+
+def _fold_sweep(n_tris, blk, block):
+    """Closest triangle per ray over blocks of `blk` triangles -> (t [B], idx [B] int32).
+
+    block(base, n) gives [B, n] distances (BIG on a miss); within a block the first
+    minimum wins and across blocks only a strictly smaller t, so ties go to the lower
+    index."""
     best_t = best_i = None
-    for base in range(0, sd.n_tris, _TRI_BLOCK):
-        n = min(_TRI_BLOCK, sd.n_tris - base)
-        m, am = _tri_block(sd, base, n, ox, oy, oz, dx, dy, dz, tmin, tmax).min(dim=1)
+    for base in range(0, n_tris, blk):
+        m, am = block(base, min(blk, n_tris - base)).min(dim=1)
         am = (am + base).to(torch.int32)
         if best_t is None:
             best_t, best_i = m, am
@@ -94,6 +133,33 @@ def _tri_sweep(sd, o, d, tmin, tmax):
             best_t = torch.where(better, m, best_t)
             best_i = torch.where(better, am, best_i)
     return best_t, best_i
+
+
+def _tri_sweep(sd, o, d, tmin, tmax):
+    """Closest triangle per ray by the dense sweep -> (t [B], idx [B] int32)."""
+    ox, oy, oz = o[:, 0:1], o[:, 1:2], o[:, 2:3]
+    dx, dy, dz = d[:, 0:1], d[:, 1:2], d[:, 2:3]
+    return _fold_sweep(sd.n_tris, _TRI_BLOCK,
+                       lambda base, n: _tri_block(sd, base, n, ox, oy, oz, dx, dy, dz, tmin, tmax))
+
+
+def _mxu_sweep(sd, o, d, tmin, tmax):
+    """Closest triangle per ray by the matmul sweep -> (t [B], idx [B] int32).
+
+    The reference asks for full float32 products (Precision.HIGHEST); on the card a
+    float32 product takes TF32 when PyTorch is told to allow it, so that raises.
+    Blocks of triangles keep one [blk, B] product under _MXU_BLOCK_BYTES.
+    """
+    if o.device.type == "cuda" and (
+        torch.backends.cuda.matmul.allow_tf32 or torch.get_float32_matmul_precision() != "highest"
+    ):
+        raise RuntimeError(
+            "the matmul sweep needs full float32 products: set torch.backends.cuda.matmul.allow_tf32 = "
+            "False and torch.set_float32_matmul_precision('highest')"
+        )
+    phi = ray_features(o[:, 0], o[:, 1], o[:, 2], d[:, 0], d[:, 1], d[:, 2])
+    blk = max(1, _MXU_BLOCK_BYTES // max(o.shape[0] * o.element_size(), 1))
+    return _fold_sweep(sd.n_tris, blk, lambda base, n: _tri_block_mxu(sd, base, n, phi, tmin, tmax).T)
 
 
 def closest_hit(sd: "D.SceneData", o, d, time, tmin, tmax, alive=None) -> Hit:
@@ -125,6 +191,13 @@ def closest_hit(sd: "D.SceneData", o, d, time, tmin, tmax, alive=None) -> Hit:
         t_t, i_t, tri_aux = tri_kernel.closest_tri(
             sd, o.contiguous(), d.contiguous(), t_in.contiguous(), tmin
         )
+    elif sd.has_tri_bvh:
+        # the stackless BVH (K4): its own walk from the root, no seed; shading
+        # attributes come from the gathers of _make_hit
+        t_t, i_t = bvh_kernel.closest_tri_bvh(o.contiguous(), d.contiguous(), tmin, tmax,
+                                              *bvh_kernel.scene_nodes(sd))
+    elif sd.has_tri_mxu:
+        t_t, i_t = _mxu_sweep(sd, o, d, tmin, tmax)
     else:
         t_t, i_t = _tri_sweep(sd, o, d, tmin, tmax)
 

@@ -14,10 +14,10 @@ from __future__ import annotations
 
 import math
 
-import numpy as np
 import torch
 
 from ..core import linalg as la
+from ..core.dtypes import NP_REAL
 
 PI = la.f32(math.pi)
 
@@ -171,6 +171,6 @@ def r0_from_eta(eta):
     return x * x
 
 
-# r0_from_eta(1.5) rounded through float32 steps, as a scalar
-_X15 = (np.float32(1.5) - np.float32(1.0)) / (np.float32(1.5) + np.float32(1.0))
+# r0_from_eta(1.5) rounded through REAL steps, as a scalar
+_X15 = (NP_REAL(1.5) - NP_REAL(1.0)) / (NP_REAL(1.5) + NP_REAL(1.0))
 R0_15 = float(_X15 * _X15)

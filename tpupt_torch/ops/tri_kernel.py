@@ -32,6 +32,7 @@ import numpy as np
 import torch
 
 from ..core import linalg as la
+from ..core.dtypes import ORACLE_X64
 from .bvh import CLUSTER_MAX
 
 BIG = la.BIG
@@ -145,6 +146,11 @@ def closest_tri(sd, o, d, t_in, tmin):
 
 
 def _check(name, o, d, t_in, scl, cl, geo, attr, sc_size):
+    if ORACLE_X64:
+        raise NotImplementedError(
+            f"{name}: the cluster routes order hits by float32 bits and do not run under the f64 "
+            "oracle; compile meshes with bvh=None or bvh=True there (the stackless BVH)"
+        )
     b = o.shape[0] if o.dim() == 2 else -1
     if o.shape != (b, 3) or d.shape != (b, 3) or t_in.shape != (b,):
         raise ValueError(
@@ -267,7 +273,7 @@ def _launch(which, o, d, t_in, tmin, scl, cl, geo, attr, sc_size):
 
 def _inv(dc):
     """Sign-preserving flush |d| < 1e-20 -> +-1e-20, then 1/d."""
-    return 1.0 / torch.where(torch.abs(dc) < 1e-20, torch.where(dc < 0, -1e-20, 1e-20), dc)
+    return 1.0 / torch.where(torch.abs(dc) < 1e-20, la.signed(dc < 0, 1e-20, dc), dc)
 
 
 def _slab(box, ox, oy, oz, ix, iy, iz, tmin, limit):

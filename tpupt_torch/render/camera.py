@@ -16,7 +16,7 @@ import torch
 from ..core import linalg as la
 from ..core import rng
 from ..core.device import resolve_device
-from ..core.dtypes import REAL
+from ..core.dtypes import NP_REAL, REAL
 from ..scene.data import CameraData
 
 
@@ -69,18 +69,18 @@ class Camera:
 
         defocus_radius = math.tan(math.radians(self.defocus_angle / 2.0)) * self.focal_length
 
-        def f32(x):
-            return torch.as_tensor(np.asarray(x, dtype=np.float32), device=dev)
+        def real(x):
+            return torch.as_tensor(np.asarray(x, dtype=NP_REAL), device=dev)
 
         return CameraData(
-            center=f32(look_from),
-            pixel00=f32(pixel00),
-            pixel_du=f32(pixel_du),
-            pixel_dv=f32(pixel_dv),
-            right=f32(right),
-            up=f32(up),
-            defocus_radius=f32(defocus_radius),
-            blur_strength=f32(self.blur_strength),
+            center=real(look_from),
+            pixel00=real(pixel00),
+            pixel_du=real(pixel_du),
+            pixel_dv=real(pixel_dv),
+            right=real(right),
+            up=real(up),
+            defocus_radius=real(defocus_radius),
+            blur_strength=real(self.blur_strength),
         )
 
 

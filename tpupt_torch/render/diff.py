@@ -19,7 +19,8 @@ Design (the detached estimator):
   direction, mixture pdf, russian-roulette probability), so gradients flow only
   through integrand factors, and a zero pdf kills its lane.
 - Geometry is not differentiable: the intersection kernels take detached rays and
-  refuse tables that require grad (ops/hit_kernel.py, ops/tri_kernel.py).
+  refuse tables that require grad (ops/hit_kernel.py, ops/tri_kernel.py,
+  ops/bvh_kernel.py).
 
 Same estimator and RNG stream as the forward renderer, no compaction. On the GPU
 the gathers' backward (index_add_) accumulates with atomics, so two runs may differ
@@ -36,7 +37,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..core.dtypes import REAL
-from ..ops import hit_kernel, tri_kernel
+from ..ops import bvh_kernel, hit_kernel, tri_kernel
 from .camera import generate_rays
 from .integrator import _mis_probs, _radiance_step, _stream_step, stream_state
 
@@ -83,7 +84,7 @@ def _trip(fn, *args):
 
 def _kernel_launches() -> dict:
     return {"K1": hit_kernel.launches, "K2": tri_kernel.launches["flat"],
-            "K3": tri_kernel.launches["two_level"]}
+            "K3": tri_kernel.launches["two_level"], "K4": bvh_kernel.launches}
 
 
 def _radiance_segment(sd, lane_args, carry, seg, segment_size, max_depth, has_lights):
@@ -176,7 +177,7 @@ class GradStats:
     lanes: int = 0
     forward_s: float = 0.0
     backward_s: float = 0.0
-    # kernel launches by kernel (K1, K2, K3) in the forward trips and in the
+    # kernel launches by kernel (K1, K2, K3, K4) in the forward trips and in the
     # backward pass's replays of them
     launches_forward: dict = dataclasses.field(default_factory=dict)
     launches_backward: dict = dataclasses.field(default_factory=dict)

@@ -11,11 +11,13 @@ Meshes of ``BVH_THRESHOLD`` triangles or more are SAH-ordered and cut into
 clusters for the cluster kernels (ops/tri_kernel.py). The route is chosen by the
 table size, for the card, not by backend: at most ``FLAT_MAX_CLUSTERS`` packed
 clusters go to the flat kernel, more (up to ``MAX_CLUSTERS``) to the two-level
-kernel with superclusters of 16, beyond that the dense sweep.
+kernel with superclusters of 16, beyond that the dense sweep. ``bvh=True`` takes
+the stackless BVH instead (ops/bvh_kernel.py), the reference's CPU route, which
+is also the default under the f64 oracle. The nodes and the cluster tables are
+kept together, so the route flags can be flipped on one SceneData.
 
 An environment ``ImageTexture(..., hdr=True)`` is kept in f32 with its alias and
-pdf tables (ops/envmap.py). Not carried yet, and raising ``NotImplementedError``
-until its ROADMAP item lands: ``bvh=True`` (the stackless BVH).
+pdf tables (ops/envmap.py).
 """
 
 from __future__ import annotations
@@ -24,7 +26,7 @@ import numpy as np
 
 from . import builder as B
 from . import data as D
-from ..core.dtypes import NP_REAL
+from ..core.dtypes import NP_REAL, ORACLE_X64
 from ..ops.bvh import build_tri_bvh_sah
 from ..ops.envmap import build_env_tables
 from ..ops.tri_kernel import (
@@ -232,44 +234,77 @@ def _pad_to_block(rows, pad_row):
     return list(rows) + [pad_row] * (target - len(rows))
 
 
-def _cluster_tables(tri: dict, n_real: int, bvh):
-    """SAH-order the triangle tables and pack clusters -> (tri, perm, tables, static).
+def _tri_route(tri: dict, n_real: int, bvh):
+    """SAH-order the triangle tables, keep the BVH nodes and pack the clusters
+    -> (tri, perm, tables, static).
 
-    perm is the SAH order (old index per new slot), None when the tables keep
-    their order (small meshes, ``bvh=False``, or tables beyond MAX_CLUSTERS,
-    which the dense sweep takes as in the reference).
+    bvh None: meshes of BVH_THRESHOLD triangles or more take the cluster kernels
+    (the stackless BVH under the f64 oracle, whose cluster routes raise); True: the
+    stackless BVH for any mesh of 2 or more triangles; False: the dense sweep.
+    Whenever the tree is built both its nodes and the cluster tables are kept, as
+    in the reference, so a caller can flip the route flags on one SceneData. perm
+    is the SAH order (old index per new slot), None when the tables keep their order.
+    The cluster flags stay off for tables beyond MAX_CLUSTERS (the dense sweep).
     """
-    no_clusters = dict(has_tri_clusters=False, has_tri_clusters_hbm=False, tri_sc_size=SC_FLAT)
     box = np.zeros((8, 8), dtype=np.float32)
     box[:, 0:6] = 1e30  # pad boxes: the slab test never passes
-    empty = dict(
+    tables = dict(
         tri_cl=box, tri_scl=box.copy(),
         tri_geo=np.zeros((8, GEO_ROWS, SLOTS), np.float32),
         tri_attr=np.zeros((8, ATTR_ROWS, SLOTS), np.float32),
+        bvh_min=np.zeros((1, 3), dtype=NP_REAL),
+        bvh_max=np.zeros((1, 3), dtype=NP_REAL),
+        bvh_skip=np.ones(1, dtype=np.int32),
+        bvh_start=np.zeros(1, dtype=np.int32),
+        bvh_count=np.zeros(1, dtype=np.int32),
     )
-    if bvh:
-        raise NotImplementedError(
-            "bvh=True: the stackless BVH traversal is not ported yet (ROADMAP); "
-            "meshes take the cluster kernels by default, bvh=False forces the dense sweep"
-        )
-    if bvh is False or n_real < BVH_THRESHOLD:
-        return tri, None, empty, no_clusters
-    order, _, clusters = build_tri_bvh_sah(tri["tri_v0"], tri["tri_e1"], tri["tri_e2"])
+    static = dict(has_tri_bvh=False, has_tri_clusters=False, has_tri_clusters_hbm=False, tri_sc_size=SC_FLAT)
+    if bvh is None:
+        use_bvh = ORACLE_X64 and n_real >= BVH_THRESHOLD
+    else:
+        use_bvh = bool(bvh) and n_real >= 2
+    if not use_bvh and (bvh is False or n_real < BVH_THRESHOLD):
+        return tri, None, tables, static
+    order, nodes, clusters = build_tri_bvh_sah(tri["tri_v0"], tri["tri_e1"], tri["tri_e2"])
     tri = {k: v[order] for k, v in tri.items()}
+    tables.update(bvh_min=nodes["bmin"], bvh_max=nodes["bmax"], bvh_skip=nodes["skip"],
+                  bvh_start=nodes["start"], bvh_count=nodes["count"])
     packed = pack_clusters(*(tri[k] for k in _TRI_GEOM), clusters, *(tri[k] for k in _TRI_ATTR))
     cp = packed[0].shape[0]
-    if cp <= FLAT_MAX_CLUSTERS:
-        static = dict(no_clusters, has_tri_clusters=True)
-    elif cp <= MAX_CLUSTERS:
+    route = {"has_tri_clusters": True}
+    if cp > MAX_CLUSTERS:
+        packed, route = None, {}
+    elif cp > FLAT_MAX_CLUSTERS:
         packed = pack_clusters(
             *(tri[k] for k in _TRI_GEOM), clusters, *(tri[k] for k in _TRI_ATTR),
             sc_size=SC_TWO_LEVEL,
         )
-        static = dict(no_clusters, has_tri_clusters_hbm=True, tri_sc_size=SC_TWO_LEVEL)
-    else:
-        return tri, order, empty, no_clusters
-    tables = dict(zip(("tri_cl", "tri_geo", "tri_attr", "tri_scl"), packed))
+        route = {"has_tri_clusters_hbm": True}
+        static["tri_sc_size"] = SC_TWO_LEVEL
+    if packed is not None:
+        tables.update(zip(("tri_cl", "tri_geo", "tri_attr", "tri_scl"), packed))
+    static.update({"has_tri_bvh": True} if use_bvh else route)
     return tri, order, tables, static
+
+
+def _mxu_tables(tri: dict, n_real: int) -> dict:
+    """The matmul sweep's coefficient rows [T,10] of the padded triangle tables
+    (the reference's formulas, in the same float32 numpy operations), built from
+    BVH_THRESHOLD triangles on; one row of zeros each below that."""
+    if n_real < BVH_THRESHOLD:
+        zero = np.zeros((1, 10), dtype=NP_REAL)
+        return dict(tri_ca=zero, tri_cu=zero.copy(), tri_cv=zero.copy(), tri_ct=zero.copy())
+    v0, e1, e2 = tri["tri_v0"], tri["tri_e1"], tri["tri_e2"]
+    z = np.zeros_like(v0[:, :1])
+    n_vec = np.cross(e1, e2)
+    return dict(
+        tri_ca=np.concatenate([np.cross(e2, e1), 0 * v0, 0 * v0, z], axis=1).astype(NP_REAL),
+        tri_cu=np.concatenate([-np.cross(e2, v0), 0 * v0, e2, z], axis=1).astype(NP_REAL),
+        tri_cv=np.concatenate([-np.cross(v0, e1), 0 * v0, -e1, z], axis=1).astype(NP_REAL),
+        tri_ct=np.concatenate(
+            [0 * v0, n_vec, 0 * v0, -(v0 * n_vec).sum(-1, keepdims=True)], axis=1
+        ).astype(NP_REAL),
+    )
 
 
 _TRI_GEOM = ("tri_v0", "tri_e1", "tri_e2")
@@ -280,7 +315,8 @@ def compile_numpy(scene: "B.Scene", bvh: bool | None = None) -> tuple[dict, dict
     """Builder scene -> (numpy tensor fields, static facts, has_lights).
 
     bvh: None routes meshes of BVH_THRESHOLD triangles or more to the cluster
-    kernels; False forces the dense sweep; True (the stackless BVH) raises.
+    kernels (to the stackless BVH under the f64 oracle); True routes any mesh to
+    the stackless BVH; False forces the dense sweep (see _tri_route).
     """
     tables = dict(
         sph=[], quad=[], tri=[], lights=[], mat_rows=[], mat_ids={}, tex_rows=[], tex_ids={}, atlas=[]
@@ -342,8 +378,9 @@ def compile_numpy(scene: "B.Scene", bvh: bool | None = None) -> tuple[dict, dict
         tri_has_uv=np.array([t[5] for t in tri_real], dtype=bool),
         tri_mat=np.array([t[6] for t in tri_real], dtype=np.int32),
     )
-    tri, perm, cluster_tables, cluster_static = _cluster_tables(tri, len(tables["tri"]), bvh)
+    tri, perm, route_tables, route_static = _tri_route(tri, len(tables["tri"]), bvh)
     tri = {k: _pad_rows(v) for k, v in tri.items()}
+    mxu = _mxu_tables(tri, len(tables["tri"]))
 
     # ---- lights (pad row never selected: the integrator masks on n_lights) ----
     if perm is not None:  # the triangle table was SAH-reordered: remap triangle lights
@@ -406,7 +443,8 @@ def compile_numpy(scene: "B.Scene", bvh: bool | None = None) -> tuple[dict, dict
         quad_d=quad_d.astype(f32),
         quad_mat=quad_mat,
         **tri,
-        **cluster_tables,
+        **route_tables,
+        **mxu,
         light_kind=light_kind,
         light_idx=light_idx,
         light_geom=light_geom,
@@ -440,7 +478,8 @@ def compile_numpy(scene: "B.Scene", bvh: bool | None = None) -> tuple[dict, dict
         env_map_w=int(tex_img[env_tex_id][1]) if env_img else 0,
         env_map_h=int(tex_img[env_tex_id][2]) if env_img else 0,
         n_lights_real=len(tables["lights"]),
-        **cluster_static,
+        has_tri_mxu=False,
+        **route_static,
     )
     # with importance sampling the environment is a light member, so MIS engages
     # (p_light = 0.5) even when the geometry lights list is empty

@@ -14,14 +14,8 @@ import numpy as np
 import torch
 
 from ..core.device import resolve_device
+from ..core.dtypes import NP_REAL
 from . import data as D
-
-# static flags of the reference's SceneData that select paths the port has not
-# ported yet; a scene that sets any of them cannot be rendered here
-_UNPORTED_FLAGS = (
-    "has_tri_bvh",
-    "has_tri_mxu",
-)
 
 _FLOAT_DTYPES = (np.float16, np.float32, np.float64)
 
@@ -29,19 +23,15 @@ _FLOAT_DTYPES = (np.float16, np.float32, np.float64)
 def _to_tensor(a, device):
     a = np.asarray(a)
     if a.dtype in _FLOAT_DTYPES:
-        a = a.astype(np.float32)
+        a = a.astype(NP_REAL)
     elif a.dtype != np.bool_:
         a = a.astype(np.int32)
     return torch.from_numpy(np.array(a, order="C")).to(device)  # a writable copy, 0-d kept
 
 
 def scene_data_from_numpy(fields: dict, static: dict, device=None) -> D.SceneData:
-    """fields: numpy arrays by SceneData field name (extra names are ignored);
-    static: the static facts by name (extra names are ignored, but a set flag of
-    an unported path raises NotImplementedError)."""
-    for flag in _UNPORTED_FLAGS:
-        if static.get(flag):
-            raise NotImplementedError(f"{flag}: this path is not ported yet (ROADMAP)")
+    """fields: numpy arrays by SceneData field name; static: the static facts by
+    name (extra names are ignored in both). Float arrays become REAL tensors."""
     dev = resolve_device(device)
     if "tri_geo" not in fields and "tri_pk" in fields:
         from ..ops.tri_kernel import from_reference_packing

@@ -14,9 +14,11 @@ flags are plain Python attributes here.
 Every table holds at least one row (a degenerate pad entry: negative-radius sphere,
 zero quad, zero-area triangle).
 
-Meshes of 64 or more triangles are SAH-ordered and packed into cluster tables
-(``ops/tri_kernel.py`` documents the layout). Not carried yet (ROADMAP): the
-stackless-BVH and MXU tables of the reference's other large-mesh paths.
+Meshes of 64 or more triangles (and any mesh compiled with ``bvh=True``) are
+SAH-ordered: the stackless BVH's nodes and the cluster tables (``ops/tri_kernel.py``
+documents their layout) are both kept, whichever route the flags pick, and from 64
+triangles on the MXU coefficient rows of the matmul sweep as well. Tables a scene
+does not build hold one dummy row (or block) each.
 """
 
 from __future__ import annotations
@@ -68,6 +70,8 @@ STATIC_FIELDS = (
     "env_map_w",
     "env_map_h",
     "n_lights_real",
+    "has_tri_bvh",
+    "has_tri_mxu",
     "has_tri_clusters",
     "has_tri_clusters_hbm",
     "tri_sc_size",
@@ -109,6 +113,22 @@ class SceneData:
     tri_scl: torch.Tensor  # [SCp,8] supercluster AABBs
     tri_geo: torch.Tensor  # [Cp,10,64] v0, e1, e2, id per slot
     tri_attr: torch.Tensor  # [Cp,16,64] n0, n1, n2, uv0, uv1, uv2, mat + HAS_UV_FLAG
+
+    # stackless BVH over the triangles (ops/bvh.py): DFS pre-order nodes with escape
+    # indices, over the SAH-ordered tables; one dummy node without the tree
+    bvh_min: torch.Tensor  # [M,3] node AABB min (padded by 1e-3 like aabb.rs:16-21)
+    bvh_max: torch.Tensor  # [M,3]
+    bvh_skip: torch.Tensor  # [M] int32 first node after the subtree
+    bvh_start: torch.Tensor  # [M] int32 leaf triangle range start
+    bvh_count: torch.Tensor  # [M] int32 leaf size, 0 = internal node
+
+    # matmul sweep (ops/intersect.py _tri_block_mxu): each triangle's Möller–Trumbore
+    # determinants as linear functionals of the ray features [d, o, o x d, 1];
+    # [1,10] zeros below 64 triangles
+    tri_ca: torch.Tensor  # [T,10] a   = d.(e2 x e1)
+    tri_cu: torch.Tensor  # [T,10] u a = (o x d).e2 - d.(e2 x v0)
+    tri_cv: torch.Tensor  # [T,10] v a = -(o x d).e1 - d.(v0 x e1)
+    tri_ct: torch.Tensor  # [T,10] t a = o.n - v0.n, n = e1 x e2
 
     # lights: rows referencing geometry
     light_kind: torch.Tensor  # [L] int32 GEOM_*
@@ -163,8 +183,11 @@ class SceneData:
     env_map_w: int = 0
     env_map_h: int = 0
     n_lights_real: int = 0  # geometry lights (light table may hold one pad row)
-    # triangle routing (the reference's flag names): the flat cluster kernel, or
-    # the two-level one (the reference's HBM kernel), or neither (dense sweep)
+    # triangle routing (the reference's flag names), tested in this order: the flat
+    # cluster kernel, the two-level one (the reference's HBM kernel), the stackless
+    # BVH, the matmul sweep, else the dense sweep
+    has_tri_bvh: bool = False
+    has_tri_mxu: bool = False
     has_tri_clusters: bool = False
     has_tri_clusters_hbm: bool = False
     tri_sc_size: int = 64  # clusters per supercluster of tri_scl
