@@ -33,9 +33,11 @@ one GPU): Cornell 600x600 at 32 spp and the scene-6 stand-in 600 px at 8 spp aga
 one rank, render_grads_sharded of a box against render_grads, and a (1 host x 2
 chips) pod mesh against the flat mesh of 2.
 Each kernel is held bit-equal to its plain version on random and camera rays and on
-the bounce rays that follow its camera rays' hits, and is timed on both batches: K1
-at its three table shapes (Cornell, scene 6, balls), K2 and K3 at theirs, K4 on both
-mesh shapes beside K2 and K3 on the same rays (the flags flipped on one SceneData). The
+the bounce rays that follow its camera rays' hits (K4 also on its camera rays with
+every other lane dead and NaN rays), and is timed on both batches: K1 at its three
+table shapes (Cornell, scene 6, balls), K2 and K3 at theirs, K4 on both mesh shapes
+beside K2 and K3 on the same rays (the flags flipped on one SceneData), with the counts
+of its own walk (wide-node fetches, triangle tests, steps, the deepest stack). The
 matmul sweep (the reference's MXU path) is held against the dense sweep and timed.
 The repository ships no asset files, so the script writes stand-ins for scene 6's
 meshes (bunny.obj, spot.obj, cow.obj: lumpy spheres of the real meshes' triangle
@@ -84,10 +86,11 @@ K1_RAY_BYTES = 7 * 4 + 3 * 4  # o, d, time in; t, kind, idx out
 TRI_FLOPS_BOX = 24
 TRI_FLOPS_TRI = 46
 TRI_RAY_BYTES = 7 * 4 + 8 * 4  # o, d, t_in in; t, id, ns xyz, u, v, mat out
-# K4's node visit is K2/K3's box test and its leaf test their triangle test, at the same counts
-BVH_RAY_BYTES = 6 * 4 + 2 * 4  # o, d in; t, idx out
-BVH_NODE_BYTES = 8 * 4  # two float4 a node
+# K4's node visit is K2/K3's box test and its leaf test their triangle test, at the same
+# counts; its rays move K2/K3's bytes (TRI_RAY_BYTES)
+BVH_NODE_BYTES = 8 * 4  # a binary node: its box, skip, start * 8 + count
 BVH_TRI_BYTES = 9 * 4  # v0, e1, e2 of a triangle row
+BVH_ATTR_BYTES = 16 * 4  # the attribute row of a ray's winner
 MXU_VALID_SHARE = 0.999  # the matmul sweep against the dense sweep (tests/test_bvh.py:129-135)
 MXU_TOL = 1e-4
 
@@ -426,64 +429,94 @@ def time_tri(name, sd, batch, rays):
 
 
 def bvh_args(sd):
-    """(kernel, plain) callables of K4 on the scene's tree: f(o, d) -> (t, idx)."""
+    """(kernel, plain) callables of K4 on the scene's tree: f(o, d, t_in) -> (t, idx, aux)."""
     from tpupt_torch.ops import bvh_kernel
     from tpupt_torch.ops.bvh import bvh_closest_tri_plain
 
-    nodes, tris = bvh_kernel.scene_nodes(sd)
-    return (lambda o, d: bvh_kernel.closest_tri_bvh(o, d, 1e-3, 3e38, nodes, tris),
-            lambda o, d, counts=None: bvh_closest_tri_plain(o, d, 1e-3, 3e38, nodes, tris, counts))
+    tables = bvh_kernel.scene_nodes(sd)
+    return (lambda o, d, t_in: bvh_kernel.closest_tri_bvh(o, d, t_in, 1e-3, *tables),
+            lambda o, d, t_in, counts=None: bvh_closest_tri_plain(o, d, t_in, 1e-3, *tables, counts))
 
 
 def check_bvh(sd, rays, label):
-    """K4 vs plain on the card -> (mismatching lanes, max |t| error on hits): t's bits and
-    idx on every lane."""
+    """K4 vs plain on the card -> (mismatching lanes, max |t| error on hits): t's bits, idx
+    and the four attribute fields on every lane."""
     kernel, plain = bvh_args(sd)
-    o, d = rays[0], rays[1]
-    kt, ki = kernel(o, d)
-    pt, pi = plain(o, d)
+    kt, ki, ka = kernel(*rays)
+    pt, pi, pa = plain(*rays)
     torch.cuda.synchronize()
-    n_bad = int(((kt.view(torch.int32) != pt.view(torch.int32)) | (ki != pi)).sum())
+    bad = (kt.view(torch.int32) != pt.view(torch.int32)) | (ki != pi) | (ka["mat"] != pa["mat"])
+    for k in ("ns_raw", "u", "v"):
+        diff = ka[k].view(torch.int32) != pa[k].view(torch.int32)
+        bad |= diff.any(dim=1) if diff.dim() == 2 else diff
+    n_bad = int(bad.sum())
     hits = pt < 3e38
     err = float((kt - pt).abs()[hits].max()) if bool(hits.any()) else 0.0
-    log(f"K4 vs plain [{label}]: {o.shape[0]} rays, {sd.bvh_skip.shape[0]} nodes over {sd.n_tris} triangle "
-        f"rows, hit share {float(hits.float().mean()):.4f}, mismatching lanes {n_bad}, max |dt| {err}")
+    log(f"K4 vs plain [{label}]: {rays[0].shape[0]} rays ({float((rays[2] > 0).float().mean()):.4f} alive), "
+        f"{sd.bvh_skip.shape[0]} nodes over {sd.n_tris} triangle rows, hit share "
+        f"{float(hits.float().mean()):.4f}, mismatching lanes {n_bad}, max |dt| {err}")
     return n_bad, err
 
 
 def bvh_batches(sd, cam, dev, seed):
-    """K4's two batches on a scene compiled with bvh=True -> {"camera": rays, "bounce": rays}:
+    """K4's batches on a scene compiled with bvh=True -> {"camera": rays, "bounce": rays}:
     the camera rays with an open seed, and the rays that follow their triangle hits
     (bounce_rays about the face normal of the triangle K4 found; lanes that missed keep
-    their ray and get the seed 0, which K2 and K3 read and K4 does not)."""
+    their ray and get the seed 0, a dead lane, as closest_hit gives K2, K3 and K4)."""
     o, d, _ = camera_rays(cam, dev)
-    t, idx = bvh_args(sd)[0](o, d)
+    t_in = torch.full((o.shape[0],), 3e38, device=dev)
+    t, idx, _ = bvh_args(sd)[0](o, d, t_in)
     n = torch.linalg.cross(sd.tri_e1[idx.long()], sd.tri_e2[idx.long()])
-    return {"camera": (o, d, torch.full_like(t, 3e38)), "bounce": bounce_rays(o, d, t, n, seed)}
+    return {"camera": (o, d, t_in), "bounce": bounce_rays(o, d, t, n, seed)}
+
+
+def masked_rays(rays):
+    """A batch with t_in = 0 on every other lane (dead) and NaN in the origin or the
+    direction of one lane in 61."""
+    o, d, t_in = (x.clone() for x in rays)
+    lane = torch.arange(o.shape[0], device=o.device)
+    t_in[lane % 2 == 0] = 0.0
+    o[lane % 61 == 1, 0] = float("nan")
+    d[lane % 61 == 3, 2] = float("nan")
+    return o, d, t_in
 
 
 def time_bvh(shape, batch, sd, rays):
-    """K4's kernel and plain times on one batch, and its bound from the node visits and
-    triangle tests that the plain version counts on these rays (at K2/K3's flops a box
-    and a triangle test) against the ray bytes, the nodes and the triangle rows."""
+    """K4's kernel and plain times on one batch, its bound from the binary node visits and
+    triangle tests that the plain version counts on these rays (at K2/K3's flops a box and
+    a triangle test) against the ray bytes, the nodes, the triangle rows and the winners'
+    attribute rows, and the counts of the kernel's own walk (wide-node fetches, triangle
+    tests, the deepest stack)."""
+    from tpupt_torch.ops import bvh_kernel
+
     kernel, plain = bvh_args(sd)
-    o, d = rays[0], rays[1]
-    b = o.shape[0]
-    ms = cuda_ms(lambda: kernel(o, d))
-    plain_ms = cuda_ms(lambda: plain(o, d), reps=1, rounds=3)
+    b = rays[0].shape[0]
+    ms = cuda_ms(lambda: kernel(*rays))
+    plain_ms = cuda_ms(lambda: plain(*rays), reps=1, rounds=3)
     counts = {}
-    t, _ = plain(o, d, counts)
+    t, _, _ = plain(*rays, counts)
+    walk = bvh_kernel.walk_counts(*rays, 1e-3, *bvh_kernel.scene_nodes(sd))
+    hits = int((t < 3e38).sum())
     flops = counts["box_tests"] * TRI_FLOPS_BOX + counts["tri_tests"] * TRI_FLOPS_TRI
-    nbytes = b * BVH_RAY_BYTES + sd.bvh_skip.shape[0] * BVH_NODE_BYTES + sd.n_tris * BVH_TRI_BYTES
+    nbytes = (b * TRI_RAY_BYTES + sd.bvh_skip.shape[0] * BVH_NODE_BYTES + sd.n_tris * BVH_TRI_BYTES
+              + hits * BVH_ATTR_BYTES)
     bound_ms, bound_by = bound(flops, nbytes)
-    log(f"K4 [{shape}, {batch}] at B={b}, {sd.bvh_skip.shape[0]} nodes, hit share "
-        f"{float((t < 3e38).float().mean()):.4f}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-        f"{bound_ms:.4f} ms ({bound_by}: {counts['box_tests']} node visits = {counts['box_tests'] / b:.2f} a "
-        f"ray, {counts['tri_tests']} triangle tests = {counts['tri_tests'] / b:.2f} a ray, {flops:.3e} flop, "
-        f"{nbytes:.3e} B; bytes alone {1e3 * nbytes / PEAK_BYTES_PER_S:.4f} ms); no single PyTorch call "
-        f"computes it")
+    log(f"K4 [{shape}, {batch}] at B={b} ({float((rays[2] > 0).float().mean()):.4f} alive), "
+        f"{sd.bvh_skip.shape[0]} nodes, hit share {hits / b:.4f}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"bound {bound_ms:.4f} ms ({bound_by}: {counts['box_tests']} node visits = "
+        f"{counts['box_tests'] / b:.2f} a ray, {counts['tri_tests']} triangle tests = "
+        f"{counts['tri_tests'] / b:.2f} a ray, {flops:.3e} flop, {nbytes:.3e} B; bytes alone "
+        f"{1e3 * nbytes / PEAK_BYTES_PER_S:.4f} ms); the kernel's walk: {walk['node_fetches'] / b:.2f} "
+        f"wide-node fetches, {walk['tri_tests'] / b:.2f} triangle tests and {walk['steps'] / b:.2f} steps a "
+        f"ray, the longest walk {walk['longest_walk']} steps, deepest stack {walk['deepest_stack']}; no "
+        f"single PyTorch call computes it")
+    if walk["tri_tests"] != counts["tri_tests"]:
+        raise SystemExit(f"chip_smoke: K4's walk tested {walk['tri_tests']} triangles, the binary walk "
+                         f"{counts['tri_tests']}")
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, lanes=b,
-                nodes=sd.bvh_skip.shape[0], hit_share=float((t < 3e38).float().mean()), **counts)
+                nodes=sd.bvh_skip.shape[0], hit_share=hits / b, **counts,
+                wide_fetches=walk["node_fetches"], steps=walk["steps"], longest_walk=walk["longest_walk"],
+                deepest_stack=walk["deepest_stack"])
 
 
 def routes(sd):
@@ -1093,7 +1126,8 @@ def run(args, dev, hit_kernel, render_image, cornell_box_scene, balls_scene, eve
     for seed, (shape, (compiled, cam)) in enumerate(bvh_shapes.items()):
         k4_rays[shape] = bvh_batches(compiled.data, cam, dev, seed + 30)
         for label, rays in (("random", tri_test_rays(compiled.data, 1 << 20, seed + 5, dev)),
-                            *k4_rays[shape].items()):
+                            *k4_rays[shape].items(),
+                            ("camera, half dead, NaN rays", masked_rays(k4_rays[shape]["camera"]))):
             n, e = check_bvh(compiled.data, rays, f"{shape}, {label}")
             bad["K4"] += n
             err["K4"] = max(err["K4"], e)
@@ -1113,7 +1147,7 @@ def run(args, dev, hit_kernel, render_image, cornell_box_scene, balls_scene, eve
         timing[name] = time_tri(name, sd, "camera", tri_batches[name]["camera"])
         bounce[name] = time_tri(name, sd, "bounce", tri_batches[name]["bounce"])
     # K4, and K2 (scene 6) and K3 (bigmesh) from the same SceneData with the flags flipped,
-    # on K4's batches (the bounce rays' dead lanes: a seed of 0 for K2 and K3, a walk for K4)
+    # on K4's batches (the bounce rays' dead lanes: a seed of 0 for all three)
     k4_times, same_rays = {}, {}
     for shape, (compiled, _) in bvh_shapes.items():
         k4_times[shape] = {batch: time_bvh(shape, batch, compiled.data, rays)
@@ -1200,11 +1234,13 @@ def run(args, dev, hit_kernel, render_image, cornell_box_scene, balls_scene, eve
     sharded.update(gloo_two_ranks(dev, m_cornell, st_cornell, kernel_ms))
 
     if args.profile:
-        for label, build in (("cornell", cornell_box_scene), ("scene6", everything_scene),
-                             ("bigmesh", bigmesh_scene), ("balls", balls_scene), ("env", env_build),
-                             *((f"scene{sid}", SCENES[sid][1]) for sid in (2, 5, 7))):
+        for label, build, bvh in (("cornell", cornell_box_scene, None), ("scene6", everything_scene, None),
+                                  ("bigmesh", bigmesh_scene, None), ("balls", balls_scene, None),
+                                  ("env", env_build, None),
+                                  *((f"scene{sid}", SCENES[sid][1], None) for sid in (2, 5, 7)),
+                                  ("scene6_bvh", everything_scene, True), ("bigmesh_bvh", bigmesh_scene, True)):
             scene, cam = build(600, 2)
-            profile_render(args.profile, label, render_image, scene.compile(device=dev), cam)
+            profile_render(args.profile, label, render_image, scene.compile(device=dev, bvh=bvh), cam)
         cfg = GRADS["grads"]
         scene, cam = cornell_box_scene(cfg["width"], cfg["spp"])
         profile_grads(args.profile, scene.compile(device=dev), cam, cfg["spp"], cfg["replicas"])

@@ -135,10 +135,9 @@ def test_traversal_matches_reference():
     tsd = _converted(jsd)
     assert tsd.has_tri_bvh and tsd.n_tris >= 4096
     o, d = _shell_rays(4096, 1)
-    nodes, tris = bvh_kernel.scene_nodes(tsd)
     counts = {}
-    t, idx = TBVH.bvh_closest_tri_plain(torch.from_numpy(o), torch.from_numpy(d), 1e-3, 3e38, nodes, tris,
-                                        counts)
+    t, idx, _ = TBVH.bvh_closest_tri_plain(torch.from_numpy(o), torch.from_numpy(d), torch.full((4096,), 3e38),
+                                           1e-3, *bvh_kernel.scene_nodes(tsd), counts)
     J = jnp.asarray
     jt, jidx = jax.jit(lambda: j_bvh_closest_tri(
         jsd, J(o[:, 0]), J(o[:, 1]), J(o[:, 2]), J(d[:, 0]), J(d[:, 1]), J(d[:, 2]),

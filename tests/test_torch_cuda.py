@@ -350,74 +350,145 @@ def test_tri_kernel_argument_checks(cuda):
 
 
 def _bvh_tables(n, dev, seed=0, morton=False):
-    """(nodes, tris) of an n-triangle random soup in its tree's order (binned SAH, or Morton)."""
+    """(nodes, tris, attr) of an n-triangle random soup in its tree's order (binned SAH,
+    or Morton), with random normals, UVs on every other triangle and material ids."""
     rng = np.random.default_rng(seed)
     v0 = (rng.normal(size=(n, 3)) * 2.0).astype(np.float32)
     e1, e2 = ((rng.normal(size=(n, 3)) * 0.2).astype(np.float32) for _ in range(2))
     order, nodes = build_tri_bvh(v0, e1, e2) if morton else build_tri_bvh_sah(v0, e1, e2)[:2]
+    attr = [rng.normal(size=(n, 3)).astype(np.float32) for _ in range(3)]
+    attr += [rng.uniform(size=(n, 2)).astype(np.float32) for _ in range(3)]
+    attr += [np.arange(n) % 2 == 0, rng.integers(0, 50, size=n).astype(np.int32)]
     to = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
     return (tuple(to(nodes[k]) for k in ("bmin", "bmax", "skip", "start", "count")),
-            tuple(to(a[order]) for a in (v0, e1, e2)))
+            tuple(to(a[order]) for a in (v0, e1, e2)), tuple(to(a[order]) for a in attr))
 
 
-def _assert_bvh_bit_equal(nodes, tris, o, d, tmin=1e-3, tmax=3e38):
-    """One launch of K4 against its plain version -> the plain version's t."""
+def _assert_bvh_bit_equal(tables, o, d, t_in, tmin=1e-3):
+    """One launch of K4 against its plain version (t's bits, idx and the four attribute
+    fields on every lane) -> the plain version's t."""
     before = bvh_kernel.launches
-    kt, ki = bvh_kernel.closest_tri_bvh(o, d, tmin, tmax, nodes, tris)
-    pt, pi = bvh_closest_tri_plain(o, d, tmin, tmax, nodes, tris)
+    kt, ki, ka = bvh_kernel.closest_tri_bvh(o, d, t_in, tmin, *tables)
+    pt, pi, pa = bvh_closest_tri_plain(o, d, t_in, tmin, *tables)
     torch.cuda.synchronize()
     assert bvh_kernel.launches == before + 1
     assert torch.equal(kt.view(torch.int32), pt.view(torch.int32)) and torch.equal(ki, pi)
+    for k in ("ns_raw", "u", "v"):
+        assert torch.equal(ka[k].view(torch.int32), pa[k].view(torch.int32)), k
+    assert torch.equal(ka["mat"], pa["mat"])
     return pt
 
 
 @pytest.mark.parametrize("b", [1, 255, 100_003])
 @pytest.mark.parametrize("n,morton", [(3000, False), (60_000, False), (3000, True)])
 def test_bvh_kernel_bit_equal_to_plain(cuda, n, morton, b):
-    nodes, tris = _bvh_tables(n, cuda, morton=morton)
+    tables = _bvh_tables(n, cuda, morton=morton)
     o, d, _ = _rays(b, 12, -3.0, 3.0, cuda)
+    t_in = torch.full((b,), 3e38, device=cuda)
     if b > 1000:  # edge lanes: axis-aligned (flushed 1/d), signed zeros, NaN, infinite origin
         d[:8] = torch.tensor([[0.0, 0.0, 1.0], [0.0, -0.0, -1.0], [1.0, 0.0, 0.0], [-0.0, 1.0, 0.0],
                               [float("nan"), 0.0, 1.0], [0.0, 0.0, 0.0], [1e-30, -1.0, 0.0],
                               [0.6, 0.8, -0.0]], device=cuda)
         o[8] = float("nan")
         o[9, 0] = float("inf")
-    pt = _assert_bvh_bit_equal(nodes, tris, o, d)
+    pt = _assert_bvh_bit_equal(tables, o, d, t_in)
     if b > 1000:
         assert (pt < 3e38).float().mean() > 0.05
         assert not bool((pt[[4, 8]] < 3e38).any())  # NaN rays miss
-    _assert_bvh_bit_equal(nodes, tris, o, d, tmin=0.5, tmax=2.0)  # a window of t
+    _assert_bvh_bit_equal(tables, o, d, torch.full_like(t_in, 2.0), tmin=0.5)  # a window of t
+    # per-ray t_in: dead lanes (0) on every other lane, short and NaN seeds on others
+    lane = torch.arange(b, device=cuda)
+    t_in = torch.where(lane % 2 == 0, 0.0, torch.where(lane % 3 == 0, 1.5, 3e38))
+    t_in = torch.where(lane % 7 == 1, float("nan"), t_in)
+    pt = _assert_bvh_bit_equal(tables, o, d, t_in)
+    assert not bool((pt[lane % 2 == 0] < 3e38).any())
 
 
 def test_bvh_kernel_mesh_rays(cuda):
     """K4 on the camera rays of a mesh scene compiled with bvh=True and on the rays that
-    follow their hits; on a scene without the tree (one dummy node) every ray misses."""
+    follow their hits (dead where the camera ray missed); on a scene without the tree (one
+    dummy node) every ray misses."""
     from chip_smoke import bounce_rays, camera_rays
 
     scene, cam = _mesh_scene(64, 1)
     sd = scene.compile(device=cuda, bvh=True).data
     assert sd.has_tri_bvh and sd.bvh_skip.shape[0] > 1000
-    nodes, tris = bvh_kernel.scene_nodes(sd)
+    tables = bvh_kernel.scene_nodes(sd)
     o, d, _ = camera_rays(cam, cuda)
-    pt = _assert_bvh_bit_equal(nodes, tris, o, d)
+    open_ = torch.full((o.shape[0],), 3e38, device=cuda)
+    pt = _assert_bvh_bit_equal(tables, o, d, open_)
     assert (pt < 3e38).float().mean() > 0.3
-    n = sd.tri_n0[bvh_kernel.closest_tri_bvh(o, d, 1e-3, 3e38, nodes, tris)[1].long()]
-    no, nd, _ = bounce_rays(o, d, pt, n, 7)
-    _assert_bvh_bit_equal(nodes, tris, no, nd)
+    _, _, aux = bvh_kernel.closest_tri_bvh(o, d, open_, 1e-3, *tables)
+    no, nd, t_in = bounce_rays(o, d, pt, aux["ns_raw"], 7)
+    _assert_bvh_bit_equal(tables, no, nd, t_in)
     empty = cornell_box_scene(16, 1)[0].compile(device=cuda).data
-    et = _assert_bvh_bit_equal(*bvh_kernel.scene_nodes(empty), o, d)
+    et = _assert_bvh_bit_equal(bvh_kernel.scene_nodes(empty), o, d, open_)
     assert not bool((et < 3e38).any())
 
 
+def test_bvh_kernel_counts(cuda):
+    """The counting build gives the same triangle tests as the binary walk's plain
+    version (the same leaves are tested), fewer wide-node fetches than binary node
+    visits, and a stack no deeper than the packing's bound."""
+    tables = _bvh_tables(60_000, cuda)
+    o, d, _ = _rays(20_000, 5, -3.0, 3.0, cuda)
+    t_in = torch.full((20_000,), 3e38, device=cuda)
+    counts, plain = bvh_kernel.walk_counts(o, d, t_in, 1e-3, *tables), {}
+    bvh_closest_tri_plain(o, d, t_in, 1e-3, *tables, plain)
+    assert counts["tri_tests"] == plain["tri_tests"] > 0
+    assert 0 < counts["node_fetches"] < plain["box_tests"]
+    assert 0 < counts["deepest_stack"] <= bvh_kernel.pack_wide(tables[0])[1] <= bvh_kernel.STACK
+
+
 def test_bvh_kernel_argument_checks(cuda):
-    nodes, tris = _bvh_tables(500, cuda)
+    nodes, tris, attr = _bvh_tables(500, cuda)
     o, d, _ = _rays(64, 1, -3.0, 3.0, cuda)
+    t_in = torch.full((64,), 3e38, device=cuda)
     with pytest.raises(ValueError, match="is on"):
-        bvh_kernel.closest_tri_bvh(o, d.cpu(), 1e-3, 3e38, nodes, tris)
+        bvh_kernel.closest_tri_bvh(o, d.cpu(), t_in, 1e-3, nodes, tris, attr)
+    with pytest.raises(ValueError, match="is on"):
+        bvh_kernel.closest_tri_bvh(o, d, t_in.cpu(), 1e-3, nodes, tris, attr)
+    with pytest.raises(ValueError, match="t_in"):
+        bvh_kernel.closest_tri_bvh(o, d, t_in[:10], 1e-3, nodes, tris, attr)
     with pytest.raises(TypeError, match="float32"):
-        bvh_kernel.closest_tri_bvh(o.double(), d.double(), 1e-3, 3e38, nodes, tris)
+        bvh_kernel.closest_tri_bvh(o.double(), d.double(), t_in.double(), 1e-3, nodes, tris, attr)
+    with pytest.raises(TypeError, match="int32"):
+        bvh_kernel.closest_tri_bvh(o, d, t_in, 1e-3, nodes, tris, (*attr[:7], attr[7].long()))
     with pytest.raises(ValueError, match="no gradient"):
-        bvh_kernel.closest_tri_bvh(o, d, 1e-3, 3e38, nodes, (tris[0].requires_grad_(), *tris[1:]))
+        bvh_kernel.closest_tri_bvh(o, d, t_in, 1e-3, nodes, (tris[0].requires_grad_(), *tris[1:]), attr)
+
+
+def _left_deep(levels):
+    """Binary node arrays of a tree whose left spine is `levels` internal nodes deep,
+    with a leaf of one triangle to the right of each and one below the last. In DFS
+    pre-order: the spine 0..L-1, the bottom leaf at L, then the right leaves of spine
+    nodes L-1 down to 0."""
+    m = 2 * levels + 1
+    skip = np.arange(1, m + 1, dtype=np.int32)
+    skip[:levels] = 2 * levels - np.arange(levels) + 1  # past its right leaf at 2L - k
+    count = np.ones(m, np.int32)
+    count[:levels] = 0
+    start = np.zeros(m, np.int32)
+    start[levels:] = np.arange(levels + 1)
+    bmin = np.zeros((m, 3), np.float32)
+    bmax = np.ones((m, 3), np.float32)
+    return tuple(torch.from_numpy(a) for a in (bmin, bmax, skip, start, count))
+
+
+def test_bvh_kernel_refuses_a_tree_deeper_than_its_stack(cuda):
+    """A tree whose all-pass walk needs more stack than the kernel holds raises before a
+    launch (a left spine of 80 internal nodes, a leaf to the right of each)."""
+    nodes = tuple(x.to(cuda) for x in _left_deep(80))
+    n = 81
+    tris = tuple(torch.zeros((n, 3), device=cuda) for _ in range(3))
+    attr = (*(torch.zeros((n, 3), device=cuda) for _ in range(3)), *(torch.zeros((n, 2), device=cuda)
+            for _ in range(3)), torch.zeros(n, dtype=torch.bool, device=cuda),
+            torch.zeros(n, dtype=torch.int32, device=cuda))
+    o, d, _ = _rays(64, 1, -3.0, 3.0, cuda)
+    before = bvh_kernel.launches
+    with pytest.raises(ValueError, match="stack"):
+        bvh_kernel.closest_tri_bvh(o, d, torch.full((64,), 3e38, device=cuda), 1e-3, nodes, tris, attr)
+    assert bvh_kernel.launches == before
 
 
 def test_small_bvh_render_matches_cpu(cuda):

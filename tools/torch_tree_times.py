@@ -10,19 +10,29 @@ chip_smoke.py of the checkout that holds this file, so every checkout is given t
 same rays.
 
     cd <checkout> && python <this checkout>/tools/torch_tree_times.py LABEL \\
-        [--kernels [K1,K2,K3]] [--renders N [--scenes cornell,balls]]
+        [--kernels [K1,K2,K3,K4]] [--renders N [--scenes cornell,balls] [--profile]]
 
 --kernels: K1 on six batches (the tables of Cornell, the scene-6 stand-in and the
 balls scene; the camera rays and the bounce rays that follow their hits); K2 (scene-6
 stand-in) and K3 (bigmesh stand-in) on four batches: the camera rays, the two bounce
 batches that follow them, and a "close-up" (the camera rays squeezed to 3% of their
-spread about the central ray, so that a warp's 32 rays share their clusters). A list
-after the option keeps to the kernels named. Per batch one JSON line: device ms (a
+spread about the central ray, so that a warp's 32 rays share their clusters); K4 on
+the scene-6 and bigmesh stand-ins compiled with bvh=True, on chip_smoke.py's two
+batches (camera rays, and the bounce rays about the face normal of each camera ray's
+triangle, dead where it missed), the bounce batch's live lanes alone, and the camera
+batch with every lane dead; through either signature of closest_tri_bvh (PR 7's takes
+no t_in and walks dead lanes; its checksum counts the live lanes' t and idx, which both
+give, and the attributes are summed apart), with the counts of the walk where the
+checkout has ``bvh_kernel.walk_counts``. A list after the option keeps to the kernels
+named. Per batch one JSON line: device ms (a
 spin kernel holds the stream while the host enqueues a round, so the calls run back
 to back whatever the host's pace), the host's ms to enqueue one call, and a checksum
 of the outputs' bits, equal between checkouts that compute the same function.
 --renders N: N renders of each scene after a 1 spp warm-up, one JSON line each;
---scenes keeps to the scenes named (cornell, scene6, bigmesh, balls).
+--scenes keeps to the scenes named (cornell, scene6, bigmesh, balls, scene6_bvh,
+bigmesh_bvh: the two mesh scenes compiled with bvh=True). --profile adds, per scene, one
+2 spp render under torch.profiler: device kernels per iteration and the device's busy
+share.
 """
 
 from __future__ import annotations
@@ -111,21 +121,83 @@ def kernels(CS, label, dev, card, which):
                 flush=True)
 
 
-def renders(CS, label, dev, card, n, scenes):
+def k4_call(sd):
+    """f(o, d, t_in) -> (t, idx, aux or None) through the checkout's closest_tri_bvh."""
+    from tpupt_torch.ops import bvh_kernel
+
+    tables = bvh_kernel.scene_nodes(sd)
+    if len(tables) == 3:  # (nodes, tris, attr): (o, d, t_in, tmin, ...) -> (t, idx, aux)
+        return lambda o, d, t_in: bvh_kernel.closest_tri_bvh(o, d, t_in, 1e-3, *tables)
+    return lambda o, d, t_in: (*bvh_kernel.closest_tri_bvh(o, d, 1e-3, 3e38, *tables), None)  # PR 7
+
+
+def k4_kernels(CS, label, dev, card):
+    from tpupt_torch.ops import bvh_kernel
+    from tpupt_torch.scenes import everything_scene
+
+    for name, (scene, cam) in (("K4 scene 6 stand-in", everything_scene(600, CS.SPP["scene6"])),
+                               ("K4 bigmesh stand-in", CS.bigmesh_scene(600, CS.SPP["bigmesh"]))):
+        sd = scene.compile(device=dev, bvh=True).data
+        k4 = k4_call(sd)
+        o, d, _ = CS.camera_rays(cam, dev)
+        camera = (o, d, torch.full((o.shape[0],), 3e38, device=dev))
+        t, idx, _ = k4(*camera)
+        n = torch.linalg.cross(sd.tri_e1[idx.long()], sd.tri_e2[idx.long()])
+        bounce = CS.bounce_rays(o, d, t, n, 30)
+        live = bounce[2] > 0
+        batches = {"camera": camera, "bounce": bounce,
+                   "bounce, live lanes alone": tuple(x[live].contiguous() for x in bounce),
+                   "camera, every lane dead": (o, d, torch.zeros_like(camera[2]))}
+        for kind, rays in batches.items():
+            ms, host_ms = device_and_host_ms(lambda: k4(*rays))
+            t, idx, aux = k4(*rays)
+            live = rays[2] > 0
+            walk = {}
+            if hasattr(bvh_kernel, "walk_counts"):
+                walk = bvh_kernel.walk_counts(*rays, 1e-3, *bvh_kernel.scene_nodes(sd))
+            print(json.dumps(dict(
+                tree=label, kernel=name, batch=kind, rays=rays[0].shape[0], alive=float(live.float().mean()),
+                ms=ms, host_ms=host_ms, checksum=checksum(t[live], idx[live]),
+                aux_checksum=None if aux is None else checksum(aux["ns_raw"], aux["u"], aux["v"], aux["mat"]),
+                card=card, **walk)), flush=True)
+
+
+def profile_counts(render_image, compiled, cam):
+    """(device kernels per iteration, device busy share) of one render under torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        _, _, st = render_image(compiled, cam, seed=0, progress=False)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e6 / wall
+    return sum(e.count for e in kernels) / max(st.iterations, 1), busy
+
+
+def renders(CS, label, dev, card, n, scenes, profiled):
     from tpupt_torch.render.renderer import render_image
     from tpupt_torch.scenes import balls_scene, cornell_box_scene, everything_scene
 
-    for key, name, build in (("cornell", "cornell", cornell_box_scene),
-                             ("scene6", "scene 6 stand-in", everything_scene),
-                             ("bigmesh", "bigmesh stand-in", CS.bigmesh_scene),
-                             ("balls", "balls", balls_scene)):
+    for key, name, build, bvh in (("cornell", "cornell", cornell_box_scene, None),
+                                  ("scene6", "scene 6 stand-in", everything_scene, None),
+                                  ("bigmesh", "bigmesh stand-in", CS.bigmesh_scene, None),
+                                  ("balls", "balls", balls_scene, None),
+                                  ("scene6_bvh", "scene 6 stand-in, bvh=True", everything_scene, True),
+                                  ("bigmesh_bvh", "bigmesh stand-in, bvh=True", CS.bigmesh_scene, True)):
         if key not in scenes:
             continue
-        spp = CS.SPP[key]
+        spp = CS.SPP[key.split("_")[0]]
         scene, cam = build(600, 1)
-        render_image(scene.compile(device=dev), cam, seed=0, progress=False)  # builds, warms up
+        render_image(scene.compile(device=dev, bvh=bvh), cam, seed=0, progress=False)  # builds, warms up
+        if profiled:
+            scene, cam = build(600, 2)
+            per_iteration, busy = profile_counts(render_image, scene.compile(device=dev, bvh=bvh), cam)
+            print(json.dumps(dict(tree=label, render=name, profile="2 spp", kernels_per_iteration=per_iteration,
+                                  device_busy=busy, card=card)), flush=True)
         scene, cam = build(600, spp)
-        compiled = scene.compile(device=dev)
+        compiled = scene.compile(device=dev, bvh=bvh)
         for rep in range(n):
             torch.cuda.synchronize()
             _, _, st = render_image(compiled, cam, seed=0, progress=False)
@@ -139,9 +211,10 @@ def renders(CS, label, dev, card, n, scenes):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("label", help="names this checkout in the output")
-    ap.add_argument("--kernels", nargs="?", const="K1,K2,K3", default="", metavar="K1,K2,K3")
+    ap.add_argument("--kernels", nargs="?", const="K1,K2,K3,K4", default="", metavar="K1,K2,K3,K4")
     ap.add_argument("--renders", type=int, default=0, metavar="N")
     ap.add_argument("--scenes", default="cornell,scene6,bigmesh,balls")
+    ap.add_argument("--profile", action="store_true")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("torch_tree_times: no CUDA device is available", file=sys.stderr)
@@ -160,8 +233,10 @@ def main(argv=None) -> int:
         CS.write_stand_in_assets(asset_dir)
         if args.kernels:
             kernels(CS, args.label, dev, card, args.kernels.split(","))
+            if "K4" in args.kernels.split(","):
+                k4_kernels(CS, args.label, dev, card)
         if args.renders:
-            renders(CS, args.label, dev, card, args.renders, args.scenes.split(","))
+            renders(CS, args.label, dev, card, args.renders, args.scenes.split(","), args.profile)
     finally:
         shutil.rmtree(asset_dir, ignore_errors=True)
     return 0

@@ -12,7 +12,8 @@ Both builds emit the nodes in DFS pre-order with an escape ("skip") index per
 node, which the stackless traversal walks with one cursor a ray: ``i + 1`` enters
 a node's subtree, ``skip[i]`` passes it by, and a leaf (count > 0) holds up to
 LEAF_SIZE contiguous triangles. ``bvh_closest_tri_plain`` is that walk in eager
-PyTorch; the CUDA kernel of ``ops/bvh_kernel.py`` runs it one thread a ray.
+PyTorch; the CUDA kernel of ``ops/bvh_kernel.py`` gives the same answers from a
+4-wide collapse of the tree.
 ``count_node_visits`` is the reference's per-ray numpy instrumentation.
 """
 
@@ -336,19 +337,22 @@ def count_node_visits(nodes, v0, e1, e2, o, d, tmin=1e-3, tmax=3e38):
     return visits / b, tri_tests / b
 
 
-def bvh_closest_tri_plain(o, d, tmin, tmax, nodes, tris, counts=None):
-    """Closest triangle by the stackless walk, in eager PyTorch -> (t [B], idx [B] int32).
+def bvh_closest_tri_plain(o, d, t_in, tmin, nodes, tris, attr, counts=None):
+    """Closest triangle by the stackless walk, in eager PyTorch -> (t [B], idx [B] int32, aux).
 
     nodes: (bmin [M,3], bmax [M,3], skip [M], start [M], count [M]); tris: (v0, e1,
-    e2) [T,3] in the tree's order. Each ray carries a cursor from node 0: the slab
-    test (1/d after the sign-preserving flush |d| < 1e-20 -> +-1e-20) passes when
-    max(slabs, tmin) <= min(slabs, min(best t, tmax)), with min and max propagating
-    NaN; a passed leaf tests its triangles in order by Möller–Trumbore and takes t
-    when tmin < t < tmax and t < best, so a tie goes to the first triangle the walk
-    meets; then the cursor moves to i + 1 from a passed internal node and to skip[i]
-    otherwise. The loop runs on the host while any cursor is below M, over the rays
-    still walking. A miss gives t = BIG and idx 0; a NaN ray misses. counts (a dict)
-    accumulates box_tests (node visits) and tri_tests.
+    e2) [T,3] and attr: (n0, n1, n2 [T,3], uv0, uv1, uv2 [T,2], has_uv [T] bool, mat
+    [T] int32), both in the tree's order; t_in [B] is each ray's tmax. Each ray
+    carries a cursor from node 0: the slab test (1/d after the sign-preserving flush
+    |d| < 1e-20 -> +-1e-20) passes when max(slabs, tmin) <= min(slabs, min(best t,
+    t_in)), with min and max propagating NaN; a passed leaf tests its triangles in
+    order by Möller–Trumbore and takes t when tmin < t < t_in and t < best, so a tie
+    goes to the first triangle the walk meets; then the cursor moves to i + 1 from a
+    passed internal node and to skip[i] otherwise. The loop runs on the host while
+    any cursor is below M, over the rays still walking. A miss gives t = BIG and idx
+    0; a NaN ray, and a ray with t_in = 0 (a dead lane), misses. aux holds the
+    winner's attributes as the cluster kernels return them (``winner_attributes``).
+    counts (a dict) accumulates box_tests (node visits) and tri_tests.
     """
     from ..core.linalg import BIG
     from .tri_kernel import _inv, _mt
@@ -359,10 +363,11 @@ def bvh_closest_tri_plain(o, d, tmin, tmax, nodes, tris, counts=None):
     b, n_nodes = o.shape[0], skip.shape[0]
     dev, real = o.device, o.dtype
     tmin_t = torch.tensor(tmin, dtype=real, device=dev)
-    tmax_t = torch.tensor(tmax, dtype=real, device=dev)
     inv = torch.stack([_inv(d[:, k]) for k in range(3)], dim=1)
     best_t = torch.full((b,), BIG, dtype=real, device=dev)
     best_i = torch.zeros(b, dtype=torch.int32, device=dev)
+    best_u = torch.zeros(b, dtype=real, device=dev)
+    best_v = torch.zeros(b, dtype=real, device=dev)
     cursor = torch.zeros(b, dtype=torch.int64, device=dev)
     skip, start, count = skip.long(), start.long(), count.long()
     if counts is not None:
@@ -380,7 +385,7 @@ def bvh_closest_tri_plain(o, d, tmin, tmax, nodes, tris, counts=None):
         lo, hi = torch.minimum(t1, t2), torch.maximum(t1, t2)
         tn = torch.maximum(torch.maximum(lo[:, 0], lo[:, 1]), torch.maximum(lo[:, 2], tmin_t))
         tf = torch.minimum(torch.minimum(hi[:, 0], hi[:, 1]),
-                           torch.minimum(hi[:, 2], torch.minimum(best_t[rows], tmax_t)))
+                           torch.minimum(hi[:, 2], torch.minimum(best_t[rows], t_in[rows])))
         hit = tn <= tf
         n = count[i]
         for k in range(LEAF_SIZE):
@@ -391,14 +396,36 @@ def bvh_closest_tri_plain(o, d, tmin, tmax, nodes, tris, counts=None):
             ti = start[i[on]] + k
             oo, dd = o[r], d[r]
             limit = best_t[r]
-            ok, t, _, _ = _mt(geo[ti], oo[:, 0], oo[:, 1], oo[:, 2], dd[:, 0], dd[:, 1], dd[:, 2],
+            ok, t, u, v = _mt(geo[ti], oo[:, 0], oo[:, 1], oo[:, 2], dd[:, 0], dd[:, 1], dd[:, 2],
                               tmin_t, limit)
-            ok = ok & (t < tmax_t)
+            ok = ok & (t < t_in[r])
             best_t[r] = torch.where(ok, t, limit)
             best_i[r] = torch.where(ok, ti.to(torch.int32), best_i[r])
+            best_u[r] = torch.where(ok, u, best_u[r])
+            best_v[r] = torch.where(ok, v, best_v[r])
             if counts is not None:
                 counts["tri_tests"] += int(r.numel())
         if counts is not None:
             counts["box_tests"] += int(rows.numel())
         cursor[rows] = torch.where(hit & (n == 0), i + 1, skip[i])
-    return best_t, best_i
+    return best_t, best_i, winner_attributes(best_t < BIG, best_i, best_u, best_v, attr)
+
+
+def winner_attributes(found, idx, u, v, attr):
+    """The winners' interpolated attributes, as the cluster kernels return them ->
+    dict(ns_raw [B,3], u [B], v [B], mat [B] int32), zeros where found is false.
+
+    idx indexes the attribute tables attr = (n0, n1, n2, uv0, uv1, uv2, has_uv, mat);
+    u, v are the winners' barycentrics. With w = 1 - u - v: ns_raw = n0 w + n1 u + n2 v,
+    and (u, v) become the interpolated UVs where the triangle has them.
+    """
+    n0, n1, n2, uv0, uv1, uv2, has_uv, mat = attr
+    i = torch.where(found, idx, 0).long()
+    w = 1.0 - u - v
+    ns = n0[i] * w[:, None] + n1[i] * u[:, None] + n2[i] * v[:, None]
+    a0, a1, a2, uv = uv0[i], uv1[i], uv2[i], has_uv[i]
+    uu = torch.where(uv, a0[:, 0] * w + a1[:, 0] * u + a2[:, 0] * v, u)
+    vv = torch.where(uv, a0[:, 1] * w + a1[:, 1] * u + a2[:, 1] * v, v)
+    zero = torch.zeros_like(u)
+    return dict(ns_raw=torch.where(found[:, None], ns, 0.0), u=torch.where(found, uu, zero),
+                v=torch.where(found, vv, zero), mat=torch.where(found, mat[i], 0).to(torch.int32))

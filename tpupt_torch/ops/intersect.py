@@ -4,7 +4,7 @@ Spheres and quads always go through ``ops/hit_kernel.closest_sphere_quad`` (the
 CUDA kernel on the GPU, its plain version on the CPU). Triangles take the route
 the scene's flags pick, in the reference's order: the cluster kernels
 (``ops/tri_kernel.closest_tri``, flat or two-level, seeded with the sphere/quad
-winner), the stackless BVH (``ops/bvh_kernel.closest_tri_bvh``, K4), the matmul
+winner), the BVH walk (``ops/bvh_kernel.closest_tri_bvh``, K4, unseeded), the matmul
 sweep (the reference's MXU path: Möller–Trumbore's determinants as products of
 coefficient rows and ray features, ``torch.matmul`` in full float32), or the dense
 Möller–Trumbore sweep.
@@ -169,8 +169,8 @@ def closest_hit(sd: "D.SceneData", o, d, time, tmin, tmax, alive=None) -> Hit:
     reproduces the reference's tie-break (objects win); across kinds ties go
     sphere < quad < tri.
 
-    alive (optional [B] bool): dead lanes seed the cluster kernels with t_in = 0,
-    so they cull every cluster and stop widening their warp's visits (their hit
+    alive (optional [B] bool): dead lanes give the triangle kernels t_in = 0, so
+    they cull every cluster or box and stop widening their warp's visits (their hit
     record is garbage either way; callers mask by alive).
     """
     sph, quad = hit_kernel.tables(sd)
@@ -192,10 +192,13 @@ def closest_hit(sd: "D.SceneData", o, d, time, tmin, tmax, alive=None) -> Hit:
             sd, o.contiguous(), d.contiguous(), t_in.contiguous(), tmin
         )
     elif sd.has_tri_bvh:
-        # the stackless BVH (K4): its own walk from the root, no seed; shading
-        # attributes come from the gathers of _make_hit
-        t_t, i_t = bvh_kernel.closest_tri_bvh(o.contiguous(), d.contiguous(), tmin, tmax,
-                                              *bvh_kernel.scene_nodes(sd))
+        # the BVH walk (K4) from the root with tmax, unseeded as in the reference (a
+        # sphere's t as seed could drop a triangle an ulp below it)
+        t_in = torch.full_like(t_s, tmax)
+        if alive is not None:
+            t_in = torch.where(alive, t_in, 0.0)
+        t_t, i_t, tri_aux = bvh_kernel.closest_tri_bvh(o.contiguous(), d.contiguous(), t_in, tmin,
+                                                       *bvh_kernel.scene_nodes(sd))
     elif sd.has_tri_mxu:
         t_t, i_t = _mxu_sweep(sd, o, d, tmin, tmax)
     else:
@@ -216,9 +219,9 @@ def _make_hit(sd, o, d, time, t, kind, idx, valid, tri_aux=None) -> Hit:
     """Reconstruct hit attributes at the winning primitive (HitInfo::new).
 
     Miss lanes have t = BIG; t is clamped to 0 there so attribute math stays
-    finite (every consumer masks by `valid`). tri_aux: the cluster kernel's
-    interpolated attributes of the triangle winner, which replace the gathers
-    over the triangle tables.
+    finite (every consumer masks by `valid`). tri_aux: the triangle kernel's
+    (cluster or BVH) interpolated attributes of the triangle winner, which replace
+    the gathers over the triangle tables that the sweeps need.
     """
     t = torch.where(valid, t, 0.0)
     ox, oy, oz = o[..., 0], o[..., 1], o[..., 2]
