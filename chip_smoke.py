@@ -17,7 +17,11 @@ The main path is the forward render (render_image) of:
 - scenes 2 (earth), 5 (BSDF demo) and 7 (normal maps), 600 px wide, max_depth 50, at
   4 spp: K1, with their JPEG and PNG textures decoded by the port's own readers
   (the committed stand-ins of tests/torch_data/, each first held bit for bit against
-  its .npy, PIL's decode of it);
+  its .npy, PIL's decode of it), each rendered twice: from the baseline stand-ins and
+  from their twins (progressive earthmap.jpg and envmap.jpg, a 16-bit color.png, an
+  Adam7 normal.png), which decode to the same .npy, so the two films must be bit-equal
+  and the rays equal; a 1024x512 progressive stand-in is decoded against the sha256
+  of PIL's decode and timed;
 - the scene-6 stand-in (32 spp) and bigmesh (25 spp) compiled with bvh=True: their meshes
   through the stackless BVH walk (K4), once an iteration;
 and the gradient path (render_film_grads: the detached estimator, each trip
@@ -31,7 +35,9 @@ the Cornell box in a world of 1 over NCCL, bit-equal to the render without a mes
 two gloo ranks spawned on the one card (NCCL puts no two ranks of a communicator on
 one GPU): Cornell 600x600 at 32 spp and the scene-6 stand-in 600 px at 8 spp against
 one rank, render_grads_sharded of a box against render_grads, and a (1 host x 2
-chips) pod mesh against the flat mesh of 2.
+chips) pod mesh against the flat mesh of 2; tpupt_torch.entry.dryrun_multichip over
+every visible card (NCCL, a rank a card; its renders and gradients launch K1) and
+tpupt_torch.entry.entry() on the card.
 Each kernel is held bit-equal to its plain version on random and camera rays and on
 the bounce rays that follow its camera rays' hits (K4 also on its camera rays with
 every other lane dead and NaN rays), and is timed on both batches: K1 at its three
@@ -101,6 +107,15 @@ SHARDED_SPP = {"cornell": 32, "scene6": 8}  # the two-rank phase: the Cornell bo
 SHARDED_JOIN_S = 420  # a spawned rank's own timeout
 FIXTURES = ("earthmap.jpg", "envmap.jpg", "bricks/color.png", "bricks/normal.png")
 FIXTURE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "torch_data")
+# twins of the stand-ins in the encodings PIL reads beside baseline JPEG and plain PNG, each
+# decoding to the .npy of its stand-in (tools/make_torch_image_fixtures.py); the scenes'
+# twin renders read the first twin of each stand-in under the stand-in's name
+TWINS = {
+    "earthmap_progressive.jpg": "earthmap.jpg", "envmap_progressive.jpg": "envmap.jpg",
+    "bricks/color16.png": "bricks/color.png", "bricks/normal_adam7.png": "bricks/normal.png",
+    "earthmap_progressive_rst.jpg": "earthmap.jpg",
+}
+BIG_PROGRESSIVE = "earthmap_1024_progressive.jpg"  # 1024x512 4:2:0; the sha256 of PIL's decode beside it
 HDR_ENV_WH = (1024, 512)  # the environment-map scene's stand-in sky
 # gradients: bench.py's `grads` configuration, and the full width at fewer samples
 GRADS = {"grads": dict(width=128, spp=32, replicas=4), "grads 600": dict(width=600, spp=4, replicas=None)}
@@ -783,24 +798,48 @@ def compare_grads(label, build, dev, kernel, bvh=None):
 # ---------------------------------------------------------------------------
 
 
-def check_image_fixtures(asset_dir):
-    """The port's PNG and JPEG readers on the committed stand-ins, bit for bit against
-    PIL's decode of each (its .npy); then the files go into the asset directory."""
+def check_image_fixtures(asset_dir, twin_dir):
+    """The port's PNG and JPEG readers on the committed stand-ins and their twins, bit for
+    bit against PIL's decode (the stand-ins' .npy), and on the 1024x512 progressive
+    stand-in against the sha256 of PIL's decode; then the stand-ins go into asset_dir and
+    the twins, under the stand-ins' names, into twin_dir -> decode ms by file."""
+    import hashlib
+
     from tpupt_torch.io.image import load_image_rgb8
 
-    for name in FIXTURES:
+    times = {}
+    for name, of in [(n, n) for n in FIXTURES] + list(TWINS.items()) + [(BIG_PROGRESSIVE, None)]:
         src = os.path.join(FIXTURE_DIR, name)
         t0 = time.perf_counter()
         got = load_image_rgb8(src)
-        dt = time.perf_counter() - t0
-        want = np.load(os.path.splitext(src)[0] + ".npy")
-        n_bad = int((got != want).sum()) if got.shape == want.shape else -1
-        log(f"decode {name} ({want.shape[1]}x{want.shape[0]}) with the port's reader: {dt * 1e3:.1f} ms, "
-            f"{n_bad} samples differ from PIL's decode")
+        times[name] = 1e3 * (time.perf_counter() - t0)
+        if of is None:  # held against the hash of PIL's decode
+            with open(os.path.splitext(src)[0] + ".json") as f:
+                ref = json.load(f)
+            n_bad = int(list(got.shape) != ref["shape"] or hashlib.sha256(got.tobytes()).hexdigest() != ref["sha256"])
+            against = "the sha256 of PIL's decode: " + ("differs" if n_bad else "equal")
+        else:
+            want = np.load(os.path.join(FIXTURE_DIR, os.path.splitext(of)[0] + ".npy"))
+            n_bad = int((got != want).sum()) if got.shape == want.shape else -1
+            against = f"{n_bad} samples differ from PIL's decode" + (f" of {of}" if of != name else "")
+        log(f"decode {name} ({got.shape[1]}x{got.shape[0]}) with the port's reader: {times[name]:.1f} ms, "
+            f"{against}")
         if n_bad:
             raise SystemExit(f"chip_smoke: the port's decode of {name} differs from PIL's")
+    for name in FIXTURES:
         os.makedirs(os.path.dirname(os.path.join(asset_dir, name)), exist_ok=True)
-        shutil.copy(src, os.path.join(asset_dir, name))
+        shutil.copy(os.path.join(FIXTURE_DIR, name), os.path.join(asset_dir, name))
+    write_twin_assets(twin_dir)
+    return times
+
+
+def write_twin_assets(root):
+    """The twins under the names the scenes read (earthmap.jpg, envmap.jpg, bricks/*.png)."""
+    for twin, name in TWINS.items():
+        dst = os.path.join(root, name)
+        if not os.path.exists(dst):
+            os.makedirs(os.path.dirname(dst), exist_ok=True)
+            shutil.copy(os.path.join(FIXTURE_DIR, twin), dst)
 
 
 def free_port() -> int:
@@ -976,6 +1015,48 @@ def gloo_two_ranks(dev, m_cornell, st_cornell, kernel_ms, width=600):
     return {"gloo, 2 ranks on cuda:0": summary}
 
 
+def dry_run():
+    """tpupt_torch.entry.dryrun_multichip over every visible card, a rank a card over NCCL (a
+    world of 1 on one card): its four checks pass in every rank, and K1 launches there."""
+    from tpupt_torch.entry import dryrun_multichip
+
+    n = torch.cuda.device_count()
+    t0 = time.perf_counter()
+    ranks = dryrun_multichip(n)
+    wall = time.perf_counter() - t0
+    card = card_line()
+    for r in ranks:
+        log(f"dryrun_multichip({n}) [nccl] rank {r['rank']} on {r['device']}: render_image(mesh) vs one "
+            f"device {r['render_image']}, render_block_sharded {r['render_block_sharded']}, pod mesh "
+            f"{r.get('render_block_pod', 'not run (odd world)')}, render_grads_sharded "
+            f"{r['render_grads_sharded']}, K1 {r['K1_launches']} launches; the call {wall:.1f} s with the "
+            f"ranks' start-up; {card}")
+        if r["K1_launches"] == 0:
+            raise SystemExit(f"chip_smoke: dryrun_multichip's rank {r['rank']} never launched K1")
+    return {f"dryrun_multichip, nccl world of {n}": {
+        "cornell 16 px": {"rank 0": dict(ranks[0], launches={"K1": ranks[0]["K1_launches"]})},
+        "wall_s": wall}}
+
+
+def entry_on_the_card():
+    """tpupt_torch.entry.entry() on the card: the radiance of 4096 Cornell lanes -> K1 launches."""
+    from tpupt_torch.entry import entry
+
+    fn, args = entry()
+    zero_counts()
+    t0 = time.perf_counter()
+    radiance = fn(*args)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k1 = read_counts()["K1"]
+    ok = radiance.shape == (4096, 3) and radiance.is_cuda and bool(torch.isfinite(radiance).all())
+    log(f"entry() on {radiance.device}: radiance {tuple(radiance.shape)}, finite {ok}, mean "
+        f"{float(radiance.mean()):.6f}, {wall:.3f} s, K1 {k1} launches")
+    if not ok or k1 == 0 or not float(radiance.mean()) > 0.0:
+        raise SystemExit("chip_smoke: entry() on the card is wrong or never launched K1")
+    return k1
+
+
 @contextlib.contextmanager
 def assets_in(path):
     """TPUPT_ASSETS pointed at `path` inside the block (a scene resolves its files when
@@ -1029,21 +1110,23 @@ def main(argv=None) -> int:
 
     asset_dir = tempfile.mkdtemp(prefix="tpupt_assets_")
     env_dir = tempfile.mkdtemp(prefix="tpupt_env_")
+    twin_dir = tempfile.mkdtemp(prefix="tpupt_twins_")
     try:
         os.environ["TPUPT_ASSETS"] = asset_dir
         tris = write_stand_in_assets(asset_dir)
         write_hdr_env_assets(env_dir)
-        check_image_fixtures(asset_dir)
+        decode_ms = check_image_fixtures(asset_dir, twin_dir)
         log(f"stand-in assets (synthetic, not the reference's files) in TPUPT_ASSETS: "
             f"{tris} triangles, grace_probe_latlong.hdr 128x64; for the environment-map scene "
             f"grace_probe_latlong.hdr {HDR_ENV_WH[0]}x{HDR_ENV_WH[1]}")
         kernels, grads, sharded = run(args, dev, hit_kernel, render_image, cornell_box_scene,
-                                      balls_scene, everything_scene, env_dir)
+                                      balls_scene, everything_scene, env_dir, twin_dir)
     finally:
-        shutil.rmtree(asset_dir, ignore_errors=True)
-        shutil.rmtree(env_dir, ignore_errors=True)
+        for d in (asset_dir, env_dir, twin_dir):
+            shutil.rmtree(d, ignore_errors=True)
 
     log(f"total {time.perf_counter() - t_start:.1f} s")
+    log(json.dumps({"decode_ms": decode_ms, "card": card}))
     log(json.dumps({"grads": grads}))
     log(json.dumps({"sharded": sharded, "card": card}))
     log(card)
@@ -1053,7 +1136,8 @@ def main(argv=None) -> int:
     return 0
 
 
-def run(args, dev, hit_kernel, render_image, cornell_box_scene, balls_scene, everything_scene, env_dir):
+def run(args, dev, hit_kernel, render_image, cornell_box_scene, balls_scene, everything_scene, env_dir,
+        twin_dir):
     from tpupt_torch.scenes import SCENES, environment_map_scene
 
     def env_build(width, spp):
@@ -1172,15 +1256,28 @@ def run(args, dev, hit_kernel, render_image, cornell_box_scene, balls_scene, eve
     _, _, ball = render("balls", balls, balls_cam, ["K1"], dict(kernel_ms, K1=k1_times["balls"]["camera"]["ms"]))
     m_env, _, el = render("environment map (HDR, importance sampled)", env, ecam, ["K1"],
                           dict(kernel_ms, K1=k1_times["env"]["camera"]["ms"]))
-    textured = {}  # scenes 2, 5 and 7: their textures through the port's PNG and JPEG readers
+    # scenes 2, 5 and 7: their textures through the port's PNG and JPEG readers, from the
+    # baseline stand-ins and then from their twins (progressive JPEG, 16-bit and Adam7 PNG),
+    # which decode to the same bytes: the two renders must be bit-equal
+    textured = {}
     for sid in (2, 5, 7):
         name, build_fn = SCENES[sid]
-        scene, cam = build_fn(600, SPP["textures"])
-        compiled = scene.compile(device=dev)
-        if not compiled.data.has_image_textures or (sid == 7) != compiled.data.has_normal_maps:
-            raise SystemExit(f"chip_smoke: scene {sid} did not compile its image textures")
-        _, _, tl = render(f"scene {sid} ({name}, stand-in textures)", compiled, cam, ["K1"], kernel_ms)
-        textured[f"scene{sid}"] = tl["K1"]
+        films = []
+        for what, root in (("stand-in textures", os.environ["TPUPT_ASSETS"]), ("twins", twin_dir)):
+            with assets_in(root):
+                scene, cam = build_fn(600, SPP["textures"])
+                compiled = scene.compile(device=dev)
+            if not compiled.data.has_image_textures or (sid == 7) != compiled.data.has_normal_maps:
+                raise SystemExit(f"chip_smoke: scene {sid} did not compile its image textures")
+            mean, st, tl = render(f"scene {sid} ({name}, {what})", compiled, cam, ["K1"], kernel_ms)
+            textured[f"scene{sid}" + (" twins" if what == "twins" else "")] = tl["K1"]
+            films.append((mean, st.rays))
+        (m_a, rays_a), (m_b, rays_b) = films
+        equal = np.array_equal(m_a, m_b, equal_nan=True) and rays_a == rays_b
+        log(f"scene {sid} from the twins vs the stand-ins: film bit-equal and rays equal {equal} "
+            f"(rays {rays_b} vs {rays_a})")
+        if not equal:
+            raise SystemExit(f"chip_smoke: scene {sid} renders differently from the twins of its textures")
     # the stackless BVH through render_image: K4 once an iteration
     _, _, s6bl = render("scene 6 stand-in, bvh=True", s6b, s6cam, ["K1", "K4"],
                         dict(kernel_ms, K1=k1_times["scene6"]["camera"]["ms"]))
@@ -1232,6 +1329,8 @@ def run(args, dev, hit_kernel, render_image, cornell_box_scene, balls_scene, eve
     # ---- the sharded phases: a world of 1 over NCCL, then two gloo ranks on the one card ----
     sharded = {"nccl, world of 1": nccl_world_of_one(c_compiled, ccam, m_cornell, st_cornell)}
     sharded.update(gloo_two_ranks(dev, m_cornell, st_cornell, kernel_ms))
+    sharded.update(dry_run())
+    entry_k1 = entry_on_the_card()
 
     if args.profile:
         for label, build, bvh in (("cornell", cornell_box_scene, None), ("scene6", everything_scene, None),
@@ -1271,7 +1370,7 @@ def run(args, dev, hit_kernel, render_image, cornell_box_scene, balls_scene, eve
         # launches on each path: renders (the sharded ones a rank), and gradient runs'
         # forward trips and replays
         if k == "K1":
-            paths = dict(k1_launches, **textured, **{"scene6 bvh": s6bl["K1"]})
+            paths = dict(k1_launches, **textured, **{"scene6 bvh": s6bl["K1"], "entry": entry_k1})
         else:
             paths = {"K2": {"scene6": s6l["K2"]}, "K3": {"bigmesh": bl["K3"]},
                      "K4": {"scene6 bvh": s6bl["K4"], "bigmesh bvh": bbl["K4"]}}[k]

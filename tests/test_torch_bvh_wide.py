@@ -8,6 +8,7 @@ best. No tolerance anywhere: the emulation must give bvh_closest_tri_plain's bit
 with the walk's attributes must equal the one gathered in _make_hit.
 """
 
+import torch_cpu_warmup  # noqa: F401  (MKL's first vector-math call, on one thread)
 import dataclasses
 import os
 import tempfile

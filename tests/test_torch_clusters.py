@@ -13,6 +13,7 @@ two-level cluster kernel's plain version against the Pallas HBM kernel.
 
 import dataclasses
 
+import torch_cpu_warmup  # noqa: F401  (MKL's first vector-math call, on one thread)
 import jax.numpy as jnp
 import numpy as np
 import pytest

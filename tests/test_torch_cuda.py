@@ -12,6 +12,7 @@ within 1% (the card's transcendentals differ from the CPU's by an ulp, which
 flips a rare branch).
 """
 
+import torch_cpu_warmup  # noqa: F401  (MKL's first vector-math call, on one thread)
 import numpy as np
 import pytest
 import torch
@@ -23,7 +24,7 @@ from tpupt_torch.render.renderer import render_image
 from tpupt_torch.scene.builder import Diffuse, Light, Scene
 from tpupt_torch.scenes import balls_scene, cornell_box_scene
 
-from chip_smoke import FIXTURE_DIR, FIXTURES, random_mesh_scene
+from chip_smoke import FIXTURE_DIR, FIXTURES, TWINS, random_mesh_scene, write_twin_assets
 
 
 @pytest.fixture
@@ -654,6 +655,67 @@ def test_decoders_on_the_committed_fixtures(cuda, name):
 
     path = os.path.join(FIXTURE_DIR, name)
     np.testing.assert_array_equal(load_image_rgb8(path), np.load(os.path.splitext(path)[0] + ".npy"))
+
+
+@pytest.mark.parametrize("name", sorted(TWINS))
+def test_decoders_on_the_committed_twins(cuda, name):
+    """Progressive JPEG, 16-bit and Adam7 PNG where there is no PIL: each twin decodes to
+    its stand-in's .npy, bit for bit."""
+    import os
+
+    from tpupt_torch.io.image import load_image_rgb8
+
+    want = np.load(os.path.join(FIXTURE_DIR, os.path.splitext(TWINS[name])[0] + ".npy"))
+    np.testing.assert_array_equal(load_image_rgb8(os.path.join(FIXTURE_DIR, name)), want)
+
+
+@pytest.mark.parametrize("sid", [2, 5, 7])
+def test_twin_renders_bit_equal_to_stand_ins(cuda, sid, tmp_path, monkeypatch):
+    """Scenes 2, 5 and 7 on the card from the twins (progressive JPEG, 16-bit and Adam7
+    PNG) and from the baseline stand-ins: the same texels, so the same film, bit for bit,
+    and the same rays."""
+    import shutil
+
+    from tpupt_torch.scenes import SCENES
+
+    stand_in, twin = tmp_path / "stand_in", tmp_path / "twin"
+    for name in FIXTURES:
+        (stand_in / name).parent.mkdir(parents=True, exist_ok=True)
+        shutil.copy(f"{FIXTURE_DIR}/{name}", stand_in / name)
+    write_twin_assets(str(twin))
+    films = []
+    for root in (stand_in, twin):
+        monkeypatch.setenv("TPUPT_ASSETS", str(root))
+        scene, cam = SCENES[sid][1](32, 4)
+        _, mean, st = render_image(scene.compile(device=cuda), cam, progress=False)
+        films.append((mean, st.rays))
+    np.testing.assert_array_equal(films[1][0], films[0][0])
+    assert films[1][1] == films[0][1]
+
+
+def test_dryrun_multichip_over_nccl(cuda):
+    """tpupt_torch.entry.dryrun_multichip over every visible card, a rank a card over NCCL:
+    its four checks pass in each rank, and its renders and gradients launch K1."""
+    from tpupt_torch.entry import dryrun_multichip
+
+    ranks = dryrun_multichip(torch.cuda.device_count())
+    assert [r["rank"] for r in ranks] == list(range(torch.cuda.device_count()))
+    assert all(r["K1_launches"] > 0 and r["device"] == f"cuda:{r['rank']}" for r in ranks)
+
+
+def test_entry_on_the_card(cuda):
+    """entry()'s radiance on the card against entry(device="cpu"): the card's tolerance of
+    this file (95% of lanes within rtol 1e-3 / atol 1e-4)."""
+    from tpupt_torch.entry import entry
+
+    fn, args = entry()
+    assert args[0].device.type == "cuda"
+    got = fn(*args)
+    assert got.is_cuda and got.shape == (4096, 3)
+    fn_cpu, args_cpu = entry(device="cpu")
+    want = fn_cpu(*args_cpu).numpy()
+    close = np.isclose(got.cpu().numpy(), want, rtol=1e-3, atol=1e-4).all(-1).mean()
+    assert close >= 0.95, close
 
 
 def test_nccl_world_of_one_bit_equal(cuda):

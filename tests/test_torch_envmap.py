@@ -16,6 +16,7 @@ Inputs are made from numpy seeds and fed to both packages. Tolerances:
 
 import dataclasses
 
+import torch_cpu_warmup  # noqa: F401  (MKL's first vector-math call, on one thread)
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -8,6 +8,7 @@ rtol 1e-3 / atol 1e-4.
 import numpy as np
 import pytest
 
+import torch_cpu_warmup  # noqa: F401  (MKL's first vector-math call, on one thread)
 from tpupt.render import diff as JD
 from tpupt_torch.render import diff as TD
 from test_torch_grad_ref import assert_grads_close, configs

@@ -15,6 +15,7 @@
 The comparisons with the reference package's gradients are in test_torch_grad_ref.py.
 """
 
+import torch_cpu_warmup  # noqa: F401  (MKL's first vector-math call, on one thread)
 import jax
 import jax.numpy as jnp
 import numpy as np

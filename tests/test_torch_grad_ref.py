@@ -20,6 +20,7 @@ A path that branches differently moves a gradient sum by its own share, so:
 
 import dataclasses
 
+import torch_cpu_warmup  # noqa: F401  (MKL's first vector-math call, on one thread)
 import jax
 import jax.numpy as jnp
 import numpy as np

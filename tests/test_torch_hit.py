@@ -13,6 +13,7 @@ s - q and a quad's d - n.o. Normals and uvs follow from t and agree to 2e-3
 (a 0.2-radius sphere turns a 2e-4 t difference into 1e-3 of normal).
 """
 
+import torch_cpu_warmup  # noqa: F401  (MKL's first vector-math call, on one thread)
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -281,6 +282,64 @@ def test_packed_tables_follow_an_edit_in_place():
     sph[6, 5] = -1.0
     second = hit_kernel._packed(sph, quad)
     assert second is not first and second[0].shape[0] == 5
+
+
+@pytest.mark.parametrize("edit", ["in place", "replaced"])
+def test_scene_tables_follow_an_edit(edit):
+    """The tables kept on a SceneData are made anew after a field they come from is
+    edited in place or replaced: closest_hit then gives the edited scene's hits, bit for
+    bit those of a scene compiled with the edit before its first call."""
+    o, d, tm = (torch.from_numpy(a) for a in _rays(4096, 11, 0.0, 555.0))
+    sd, fresh = (t_cornell(16, 4)[0].compile(device="cpu").data for _ in range(2))
+    before = t_closest_hit(sd, o, d, tm, 1e-3, BIG)
+    for x in (sd, fresh):
+        if edit == "in place":
+            x.sph_r.mul_(0.5)
+            x.quad_d.add_(7.0)
+        else:
+            x.sph_r, x.quad_d = x.sph_r * 0.5, x.quad_d + 7.0
+    after, want = (t_closest_hit(x, o, d, tm, 1e-3, BIG) for x in (sd, fresh))
+    assert not torch.equal(after.t, before.t)
+    for k in ("t", "valid", "mat_id"):
+        assert torch.equal(getattr(after, k), getattr(want, k)), k
+
+
+def test_plain_version_repeats_its_bits_on_every_thread():
+    """Two calls of the plain version on the same rays, spread over every intra-op thread,
+    give the same bits, and every thread rounds to nearest and keeps denormals (no
+    flush-to-zero, no denormals-are-zero), the state the plain version's bits assume
+    (ROADMAP Queue 3)."""
+    n = 1 << 22  # elementwise ops of this size run on every intra-op thread
+    one, q = torch.ones(n), torch.full((n,), 2.0**-25)
+    state = {
+        "rounds up": int(((one + q) != 1.0).sum()),
+        "rounds down": int(((-one - q) != -1.0).sum()),
+        "rounds toward zero": int(((one + 3 * q) == 1.0).sum()),
+        "denormals are zero": int((torch.full((n,), 1e-39) * 1.0 == 0.0).sum()),
+        "flushes to zero": int((torch.full((n,), 1e-20) * 1e-20 == 0.0).sum()),
+    }
+    assert not any(state.values()), f"elements computed in a non-default float state: {state}"
+    sph, quad = hit_kernel.tables(t_balls(16, 4)[0].compile(device="cpu").data)
+    o, d, tm = (torch.from_numpy(a) for a in _rays(1 << 16, 12, -12.0, 12.0))
+    first = hit_kernel.closest_sphere_quad_plain(o, d, tm, sph, quad)
+    second = hit_kernel.closest_sphere_quad_plain(o, d, tm, sph, quad)
+    assert float((first[0] < BIG).float().mean()) > 0.05
+    _assert_same_hits(second, first)
+
+
+def test_every_port_test_module_warms_the_vector_math_first():
+    """Each tests/test_torch_*.py imports tests/torch_cpu_warmup.py, whose one call into
+    MKL's vector math on one thread keeps the first multi-threaded call of the process
+    from running a less accurate sqrt on one intra-op chunk (ROADMAP Queue 3)."""
+    import ast
+    import pathlib
+
+    files = sorted(pathlib.Path(__file__).resolve().parent.glob("test_torch_*.py"))
+    assert len(files) > 20
+    for f in files:
+        names = {a.name for node in ast.parse(f.read_text()).body if isinstance(node, ast.Import)
+                 for a in node.names}
+        assert "torch_cpu_warmup" in names, f"{f.name} does not import torch_cpu_warmup"
 
 
 @pytest.mark.parametrize("name", ["balls", "moving", "crowd"])

@@ -5,10 +5,12 @@ PNG at every colour type and bit depth the reader takes and under each of the fi
 row filters; JPEG grey, 4:4:4, 4:2:2 and 4:2:0 at qualities 50, 75 and 95, at sizes
 that are not whole blocks or MCUs, and with restart markers (the reader runs
 libjpeg's ISLOW IDCT, fancy upsampling and integer colour conversion). Inputs it
-does not read (progressive or arithmetic-coded JPEG, CMYK, 16-bit or interlaced
-PNG) raise ValueError naming the file.
+does not read (arithmetic-coded or 12-bit JPEG, CMYK, PNG colour types and bit
+depths the PNG specification does not define) raise ValueError naming the file.
+Progressive JPEG, 16-bit and Adam7 PNG: tests/test_torch_image_formats.py.
 """
 
+import torch_cpu_warmup  # noqa: F401  (MKL's first vector-math call, on one thread)
 import os
 import pathlib
 import struct
@@ -18,6 +20,7 @@ import numpy as np
 import pytest
 from PIL import Image
 
+from tools.make_torch_image_fixtures import filter_row, png_chunk
 from tpupt_torch.io.image import load_image_f32, load_image_rgb8
 from tpupt_torch.io.jpeg import read_jpeg_rgb8
 from tpupt_torch.io.png import read_png_rgb8
@@ -33,32 +36,6 @@ def _pil(path):
 # ---- PNG ----
 
 
-def _filter_row(ftype, cur, prev, bpp):
-    """PNG filter `ftype` applied to one row of bytes (the encoder's side)."""
-    out = bytearray(len(cur))
-    for i, x in enumerate(cur):
-        a = cur[i - bpp] if i >= bpp else 0
-        b = prev[i]
-        c = prev[i - bpp] if i >= bpp else 0
-        if ftype == 0:
-            pred = 0
-        elif ftype == 1:
-            pred = a
-        elif ftype == 2:
-            pred = b
-        elif ftype == 3:
-            pred = (a + b) >> 1
-        else:
-            pa, pb, pc = abs(b - c), abs(a - c), abs(a + b - 2 * c)
-            pred = a if pa <= pb and pa <= pc else (b if pb <= pc else c)
-        out[i] = (x - pred) & 0xFF
-    return bytes(out)
-
-
-def _chunk(tag, body):
-    return struct.pack(">I", len(body)) + tag + body + struct.pack(">I", zlib.crc32(tag + body))
-
-
 def write_png(path, rows, w, depth, ctype, palette=None, interlace=0):
     """A PNG of packed rows uint8 [h, stride], row y under filter y % 5, in two IDATs."""
     h, stride = rows.shape
@@ -67,14 +44,14 @@ def write_png(path, rows, w, depth, ctype, palette=None, interlace=0):
     raw, prev = bytearray(), bytes(stride)
     for y in range(h):
         cur = rows[y].tobytes()
-        raw += bytes([y % 5]) + _filter_row(y % 5, cur, prev, bpp)
+        raw += bytes([y % 5]) + filter_row(y % 5, cur, prev, bpp)
         prev = cur
     z = zlib.compress(bytes(raw))
-    body = _chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, depth, ctype, 0, 0, interlace))
+    body = png_chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, depth, ctype, 0, 0, interlace))
     if palette is not None:
-        body += _chunk(b"PLTE", palette.tobytes())
-    body += _chunk(b"IDAT", z[: len(z) // 2]) + _chunk(b"IDAT", z[len(z) // 2 :])
-    pathlib.Path(path).write_bytes(b"\x89PNG\r\n\x1a\n" + body + _chunk(b"IEND", b""))
+        body += png_chunk(b"PLTE", palette.tobytes())
+    body += png_chunk(b"IDAT", z[: len(z) // 2]) + png_chunk(b"IDAT", z[len(z) // 2 :])
+    pathlib.Path(path).write_bytes(b"\x89PNG\r\n\x1a\n" + body + png_chunk(b"IEND", b""))
 
 
 PNG_KINDS = [  # (colour type, bit depth)
@@ -120,13 +97,13 @@ def test_png_written_by_pil(tmp_path, mode):
 
 
 def test_png_rejected_inputs(tmp_path):
-    path = tmp_path / "deep.png"
-    Image.fromarray((np.arange(64, dtype=np.uint16) * 1000).reshape(8, 8)).save(path)
-    with pytest.raises(ValueError, match=r"deep\.png.*16-bit"):
+    path = tmp_path / "deep.png"  # a 16-bit palette is not a PNG colour type
+    write_png(path, np.zeros((4, 16), np.uint8), 8, 16, 3, palette=np.zeros((2, 3), np.uint8))
+    with pytest.raises(ValueError, match=r"deep\.png.*colour type 3 at 16 bits"):
         read_png_rgb8(str(path))
-    path = tmp_path / "adam7.png"
-    write_png(path, np.zeros((4, 12), np.uint8), 4, 8, 2, interlace=1)
-    with pytest.raises(ValueError, match=r"adam7\.png.*interlaced"):
+    path = tmp_path / "adam7.png"  # interlace method 2 is not defined (1 is Adam7)
+    write_png(path, np.zeros((4, 12), np.uint8), 4, 8, 2, interlace=2)
+    with pytest.raises(ValueError, match=r"adam7\.png.*interlace method 2"):
         read_png_rgb8(str(path))
     path = tmp_path / "short.png"
     write_png(path, np.full((4, 8), 5, np.uint8), 8, 8, 3, palette=np.zeros((2, 3), np.uint8))
@@ -176,9 +153,17 @@ def test_jpeg_restart_markers(tmp_path, kind):
 
 def test_jpeg_rejected_inputs(tmp_path):
     img = _smooth(16, 16, 1)
-    path = tmp_path / "prog.jpg"
+    path = tmp_path / "prog.jpg"  # arithmetic-coded progressive (SOF2 -> SOF10)
     Image.fromarray(img, "RGB").save(path, progressive=True)
-    with pytest.raises(ValueError, match=r"prog\.jpg.*progressive"):
+    path.write_bytes(path.read_bytes().replace(b"\xff\xc2", b"\xff\xca", 1))
+    with pytest.raises(ValueError, match=r"prog\.jpg.*arithmetic-coded progressive"):
+        read_jpeg_rgb8(str(path))
+    path = tmp_path / "deep.jpg"  # 12-bit samples (SOF1, precision 12)
+    Image.fromarray(img, "RGB").save(path)
+    data = path.read_bytes()
+    sof = data.index(b"\xff\xc0")
+    path.write_bytes(data[:sof] + b"\xff\xc1" + data[sof + 2 : sof + 4] + b"\x0c" + data[sof + 5 :])
+    with pytest.raises(ValueError, match=r"deep\.jpg.*12-bit"):
         read_jpeg_rgb8(str(path))
     path = tmp_path / "cmyk.jpg"
     Image.fromarray(np.concatenate([img, img[..., :1]], axis=-1), "CMYK").save(path)

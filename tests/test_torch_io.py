@@ -7,6 +7,7 @@ readers must return the same arrays, bit for bit.
 import numpy as np
 import pytest
 
+import torch_cpu_warmup  # noqa: F401  (MKL's first vector-math call, on one thread)
 from tpupt.io import image as JI
 from tpupt.io.obj import load_obj as j_load_obj
 from tpupt.io.obj import subdivide_mesh as j_subdivide

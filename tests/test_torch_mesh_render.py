@@ -23,6 +23,7 @@ golden).
 import os
 import pathlib
 
+import torch_cpu_warmup  # noqa: F401  (MKL's first vector-math call, on one thread)
 import jax.numpy as jnp
 import numpy as np
 import pytest

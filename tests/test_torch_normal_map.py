@@ -22,6 +22,7 @@ from PIL import Image
 from test_torch_grad_ref import assert_grads_close
 from test_torch_mesh_render import _reference_op_by_op
 from test_torch_scene import _assert_same
+import torch_cpu_warmup  # noqa: F401  (MKL's first vector-math call, on one thread)
 from tpupt.render import diff as JD
 from tpupt.render.camera import Camera as JCamera
 from tpupt.scene import builder as JB

@@ -9,6 +9,7 @@ and light-pdf formulas divide by small cosines and distances, which amplifies
 that on a few grazing lanes. Everything else must agree on every lane.
 """
 
+import torch_cpu_warmup  # noqa: F401  (MKL's first vector-math call, on one thread)
 import jax
 import jax.numpy as jnp
 import numpy as np

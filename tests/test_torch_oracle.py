@@ -30,6 +30,7 @@ import os
 import subprocess
 import sys
 
+import torch_cpu_warmup  # noqa: F401  (MKL's first vector-math call, on one thread)
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -20,6 +20,7 @@ import pathlib
 import struct
 import zlib
 
+import torch_cpu_warmup  # noqa: F401  (MKL's first vector-math call, on one thread)
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -209,10 +210,16 @@ def _imports(path):
 
 
 def test_port_imports_neither_jax_nor_tpupt():
-    """Nor PIL: the port reads PNG and JPEG itself (the card's machine has no PIL)."""
+    """Nor PIL: the port reads PNG and JPEG itself (the card's machine has no PIL), and
+    the card's tests run without it. The port's tools import neither jax nor tpupt (PIL
+    writes and checks their images here)."""
     files = sorted((ROOT / "tpupt_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
-    assert len(files) > 10 and os.path.exists(files[-1])
-    for f in files:
+    assert len(files) > 10 and os.path.exists(files[-1]) and ROOT / "tpupt_torch" / "entry.py" in files
+    tools = sorted((ROOT / "tools").glob("torch_*.py")) + [ROOT / "tools" / "make_torch_image_fixtures.py"]
+    card_tests = [ROOT / "tests" / "test_torch_cuda.py", ROOT / "tests" / "torch_sharding_worker.py"]
+    assert len(tools) >= 5 and all(os.path.exists(f) for f in tools + card_tests)
+    for f in files + tools + card_tests:
+        banned = ("jax", "jaxlib", "tpupt") + (() if f in tools else ("PIL",))
         for mod in _imports(f):
             top = mod.split(".")[0]
-            assert top not in ("jax", "jaxlib", "tpupt", "PIL"), f"{f} imports {mod}"
+            assert top not in banned, f"{f} imports {mod}"

@@ -4,6 +4,7 @@ Tolerance: none. Both sides compute the same uint32 hash and the same exact
 24-bit-to-float conversion, so every output must be identical.
 """
 
+import torch_cpu_warmup  # noqa: F401  (MKL's first vector-math call, on one thread)
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_cpu_warmup  # noqa: F401  (MKL's first vector-math call, on one thread)
 import tpupt.scenes as JSCENES_MODULE
 from chip_smoke import write_stand_in_assets
 from tpupt.scene import builder as JB

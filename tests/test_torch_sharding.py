@@ -24,6 +24,7 @@ import torch
 import torch.multiprocessing as mp
 
 import torch_sharding_worker as W
+import torch_cpu_warmup  # noqa: F401  (MKL's first vector-math call, on one thread)
 from tpupt.parallel.sharding import make_mesh as j_make_mesh
 from tpupt.parallel.sharding import render_block_sharded as j_render_block_sharded
 from tpupt.parallel.sharding import render_grads_sharded as j_render_grads_sharded

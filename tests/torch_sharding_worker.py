@@ -123,6 +123,15 @@ def _run_2(mesh, out, rank):
             "dead": (radiance.numpy(), {k: v.numpy() for k, v in grads.items()})}
 
 
+def failing_checks(n, dev):
+    """tests/test_torch_entry.py's planted failure: rank 1 fails its check, rank 0 waits
+    for it in a collective that never completes."""
+    rank = dist.get_rank()
+    assert rank != 1, f"planted in rank {rank}"
+    dist.all_reduce(torch.zeros(1))
+    return {}
+
+
 def card_worker(rank, world, store, out):
     """A rank of tests/test_torch_cuda.py's two-rank check: gloo, every rank on cuda:0
     (NCCL puts no two ranks of a communicator on one card)."""

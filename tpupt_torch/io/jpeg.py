@@ -1,9 +1,15 @@
-"""Baseline JPEG reader on the standard library and numpy.
+"""JPEG reader on the standard library and numpy.
 
-Decodes sequential Huffman-coded JPEG (SOF0/SOF1) at 8-bit precision with 1 or 3
-components, chroma sampled 4:4:4, 4:2:2 (h2v1) or 4:2:0 (h2v2), with or without
-restart markers, to uint8 [H,W,3]. It computes what PIL's libjpeg(-turbo) computes
-by default, so a texture decodes to the same bytes as under the reference package:
+Decodes sequential (SOF0/SOF1) and progressive (SOF2) Huffman-coded JPEG at 8-bit
+precision with 1 or 3 components, chroma sampled 4:4:4, 4:2:2 (h2v1) or 4:2:0
+(h2v2), with or without restart markers, to uint8 [H,W,3]. It computes what PIL's
+libjpeg(-turbo) computes by default, so a texture decodes to the same bytes as
+under the reference package:
+
+- the progressive scans of ITU T.81 G.1.2 (jdphuff.c: DC first and refinement, AC
+  first with end-of-band runs, AC refinement) into the coefficient store that the
+  sequential scans fill, each component's quantization table latched at its first
+  scan (jdinput.c);
 
 - the ISLOW integer IDCT (jidctint.c: CONST_BITS 13, PASS1_BITS 2, and the
   post-IDCT range-limit table, which wraps at 1024);
@@ -13,8 +19,10 @@ by default, so a texture decodes to the same bytes as under the reference packag
 
 The Huffman decode is a Python loop over a table of 16-bit lookahead windows; the
 IDCT, the upsampling and the colour conversion run in numpy over all blocks at
-once. Progressive, lossless, hierarchical and arithmetic-coded files, 12-bit
-samples and CMYK raise ValueError naming the file.
+once. Lossless, hierarchical and arithmetic-coded files, 12-bit samples and CMYK
+raise ValueError naming the file, and so does a progressive file whose scans leave
+a low-frequency coefficient unrefined: libjpeg smooths such blocks
+(jdcoefct.c decompress_smooth_data), which this reader does not do.
 """
 
 from __future__ import annotations
@@ -33,7 +41,7 @@ _NATURAL = [
 ] + [63] * 16
 
 _UNSUPPORTED_SOF = {
-    0xC2: "progressive", 0xC3: "lossless", 0xC5: "hierarchical", 0xC6: "hierarchical",
+    0xC3: "lossless", 0xC5: "hierarchical", 0xC6: "hierarchical",
     0xC7: "hierarchical", 0xC9: "arithmetic-coded", 0xCA: "arithmetic-coded progressive",
     0xCB: "arithmetic-coded lossless", 0xCD: "arithmetic-coded hierarchical",
     0xCE: "arithmetic-coded hierarchical", 0xCF: "arithmetic-coded hierarchical",
@@ -144,6 +152,134 @@ def _decode_scan(stream, starts, scan, blocks, restart, path):
                     k += 16
                 else:  # EOB
                     break
+        if pos > end:
+            raise ValueError(f"{path}: JPEG scan data is truncated")
+
+
+def _refine(blocks, i, bit, p1):
+    """A refinement scan's correction bit on a coefficient with a non-zero history: 1
+    raises its magnitude by p1 (jdphuff.c; that bit is still 0, since the scan before
+    coded the coefficient in multiples of 2 p1, as _check_progression holds)."""
+    if bit:
+        c = blocks[i]
+        blocks[i] = c + p1 if c >= 0 else c - p1
+
+
+def _decode_progressive_scan(stream, starts, scan, blocks, restart, band, path):
+    """Huffman-decode one progressive scan (jdphuff.c) into the coefficient store.
+
+    band: (Ss, Se, Ah, Al). Ss = 0 is a DC scan (first if Ah = 0: the difference to
+    the component's predictor, shifted up by Al; else one bit ORed in at Al), Ss > 0 an
+    AC scan of coefficients Ss..Se of one component (first if Ah = 0: values shifted
+    up by Al, with runs of blocks that end here, EOBRUN; else a correction bit for
+    each coefficient with a non-zero history and new coefficients of +-2^Al). The
+    predictors and EOBRUN restart at every restart marker. Arguments as _decode_scan.
+    """
+    ss, se, ah, al = band
+    win = _windows(stream)
+    end = 8 * len(stream)
+    mcu_blocks, n_mcu = scan
+    pred = {}
+    pos, seg, eobrun = 0, 0, 0
+    p1 = 1 << al
+    for m in range(n_mcu):
+        if restart and m and m % restart == 0:
+            seg += 1
+            if seg >= len(starts):
+                raise ValueError(f"{path}: JPEG restart marker missing before MCU {m}")
+            pos = 8 * starts[seg]
+            pred.clear()
+            eobrun = 0
+        for comp, dc, ac, base in mcu_blocks(m):
+            if ss == 0 and ah == 0:  # DC first
+                e = dc[win[pos]]
+                if not e:
+                    raise ValueError(f"{path}: bad JPEG Huffman code at bit {pos}")
+                pos += e & 31
+                s = e >> 5
+                v = 0
+                if s:
+                    v = win[pos] >> (16 - s)
+                    pos += s
+                    if v < 1 << (s - 1):
+                        v -= (1 << s) - 1
+                v += pred.get(comp, 0)
+                pred[comp] = v
+                blocks[base] = v * p1
+            elif ss == 0:  # DC refinement
+                if win[pos] >> 15:
+                    blocks[base] |= p1
+                pos += 1
+            elif ah == 0:  # AC first
+                if eobrun:
+                    eobrun -= 1
+                    continue
+                k = ss
+                while k <= se:
+                    e = ac[win[pos]]
+                    if not e:
+                        raise ValueError(f"{path}: bad JPEG Huffman code at bit {pos}")
+                    pos += e & 31
+                    r, s = e >> 9, (e >> 5) & 15
+                    if s:
+                        k += r
+                        v = win[pos] >> (16 - s)
+                        pos += s
+                        if v < 1 << (s - 1):
+                            v -= (1 << s) - 1
+                        blocks[base + _NATURAL[k]] = v * p1
+                    elif r == 15:  # ZRL: sixteen zeros
+                        k += 15
+                    else:  # EOBr: this block and 2^r - 1 + (r bits) more end here
+                        eobrun = 1 << r
+                        if r:
+                            eobrun += win[pos] >> (16 - r)
+                            pos += r
+                        eobrun -= 1
+                        break
+                    k += 1
+            else:  # AC refinement
+                k = ss
+                if not eobrun:
+                    while k <= se:
+                        e = ac[win[pos]]
+                        if not e:
+                            raise ValueError(f"{path}: bad JPEG Huffman code at bit {pos}")
+                        pos += e & 31
+                        r, s = e >> 9, (e >> 5) & 15
+                        new = 0
+                        if s:  # a new coefficient of magnitude 2^Al, its sign bit next
+                            new = p1 if win[pos] >> 15 else -p1
+                            pos += 1
+                        elif r != 15:  # EOBr: the rest of this band in the run below
+                            eobrun = 1 << r
+                            if r:
+                                eobrun += win[pos] >> (16 - r)
+                                pos += r
+                            break
+                        # pass r zero-history coefficients (ZRL: 15, and the loop's
+                        # step the 16th), a correction bit for each non-zero one
+                        while k <= se:
+                            i = base + _NATURAL[k]
+                            if blocks[i]:
+                                _refine(blocks, i, win[pos] >> 15, p1)
+                                pos += 1
+                            else:
+                                r -= 1
+                                if r < 0:
+                                    break
+                            k += 1
+                        if new:
+                            blocks[base + _NATURAL[k]] = new
+                        k += 1
+                if eobrun:  # in an end-of-band run: correction bits only
+                    while k <= se:
+                        i = base + _NATURAL[k]
+                        if blocks[i]:
+                            _refine(blocks, i, win[pos] >> 15, p1)
+                            pos += 1
+                        k += 1
+                    eobrun -= 1
         if pos > end:
             raise ValueError(f"{path}: JPEG scan data is truncated")
 
@@ -327,15 +463,41 @@ def _plane(frame, c, store, qt):
     return p[: frame.h, : frame.w]
 
 
+def _check_progression(band, comps, coef_bits, path):
+    """Refuse a progressive scan that libjpeg refuses or warns about (jdphuff.c
+    start_pass_phuff_decoder), and record its Al for each coefficient it codes."""
+    ss, se, ah, al = band
+    bad = (se != 0) if ss == 0 else (ss > se or se > 63 or len(comps) != 1)
+    if bad or (ah and al != ah - 1) or al > 13:
+        raise ValueError(f"{path}: progressive JPEG scan with Ss={ss} Se={se} Ah={ah} Al={al} is invalid")
+    for ci in comps:
+        bits = coef_bits[ci]
+        if (ss > 0 and bits[0] < 0) or any(ah != max(bits[k], 0) for k in range(ss, se + 1)):
+            raise ValueError(f"{path}: progressive JPEG scans out of order (component {ci}, Ss={ss}, Ah={ah})")
+        bits[ss : se + 1] = [al] * (se - ss + 1)
+
+
+# natural positions of the DC and first nine AC coefficients (jdcoefct.c Q00_POS..Q30_POS)
+_SMOOTHED = (0, 1, 8, 16, 9, 2, 3, 10, 17, 24)
+
+
+def _would_smooth(coef_bits, comp_qt):
+    """libjpeg's smoothing_ok (jdcoefct.c, libjpeg-turbo 2.1 and later): block smoothing
+    runs when every component has its DC and those nine quantizers non-zero and a DC
+    scan, and some component's first nine AC coefficients are not fully refined."""
+    ok = all(bits[0] >= 0 and all(comp_qt[ci][k] for k in _SMOOTHED) for ci, bits in enumerate(coef_bits))
+    return ok and any(bits[k] != 0 for bits in coef_bits for k in range(1, 10))
+
+
 def read_jpeg_rgb8(path: str) -> np.ndarray:
-    """Decode a baseline JPEG file -> uint8 [H,W,3] (PIL's ``.convert("RGB")``)."""
+    """Decode a baseline or progressive JPEG file -> uint8 [H,W,3] (PIL's ``.convert("RGB")``)."""
     with open(path, "rb") as f:
         data = f.read()
     if not data.startswith(b"\xff\xd8"):
         raise ValueError(f"{path}: not a JPEG file")
     qt, dc_tabs, ac_tabs, comp_qt = {}, {}, {}, {}
-    frame = store = None
-    restart, jfif, adobe_transform = 0, False, None
+    frame = store = coef_bits = None
+    restart, jfif, adobe_transform, progressive = 0, False, None, False
     pos = 2
     while True:
         while pos < len(data) and data[pos] == 0xFF:  # a marker and its fill bytes
@@ -378,7 +540,8 @@ def read_jpeg_rgb8(path: str) -> np.ndarray:
             jfif = True
         elif marker == 0xEE and body[:5] == b"Adobe" and len(body) >= 12:
             adobe_transform = body[11]
-        elif marker in (0xC0, 0xC1):  # SOF0 / SOF1
+        elif marker in (0xC0, 0xC1, 0xC2):  # SOF0 / SOF1 / SOF2 (progressive)
+            progressive = marker == 0xC2
             precision, h, w, nf = struct.unpack(">BHHB", body[:6])
             if precision != 8:
                 raise ValueError(f"{path}: {precision}-bit JPEG is not supported")
@@ -392,22 +555,38 @@ def read_jpeg_rgb8(path: str) -> np.ndarray:
                 comps[0].update(h=1, v=1)
             frame = _Frame(w, h, comps, path)
             store = array.array("i", bytes(4 * frame.n_coefs))
+            coef_bits = [[-1] * 64 for _ in comps]  # the Al of each coefficient's last scan
         elif marker == 0xDA:  # SOS: the entropy-coded data follows its header
             if frame is None:
                 raise ValueError(f"{path}: JPEG scan before its frame header")
+            ns = body[0]
+            band = (body[1 + 2 * ns], body[2 + 2 * ns], body[3 + 2 * ns] >> 4, body[3 + 2 * ns] & 15)
             members = []
-            for c in range(body[0]):
+            for c in range(ns):
                 ci, t = frame.index(body[1 + 2 * c]), body[2 + 2 * c]
-                if (t >> 4) not in dc_tabs or (t & 15) not in ac_tabs:
+                # a sequential scan reads both tables; a progressive DC scan the DC table
+                # (its refinement none), an AC scan the AC table
+                need_dc = not progressive or (band[0] == 0 and band[2] == 0)
+                need_ac = not progressive or band[0] > 0
+                if (need_dc and (t >> 4) not in dc_tabs) or (need_ac and (t & 15) not in ac_tabs):
                     raise ValueError(f"{path}: JPEG scan names a missing Huffman table")
                 if frame.comps[ci]["tq"] not in qt:
                     raise ValueError(f"{path}: JPEG scan needs a missing quantization table")
                 comp_qt.setdefault(ci, qt[frame.comps[ci]["tq"]].copy())
-                members.append((ci, dc_tabs[t >> 4], ac_tabs[t & 15]))
+                members.append((ci, dc_tabs.get(t >> 4), ac_tabs.get(t & 15)))
             stream, starts, pos = _entropy_segments(data, pos, path)
-            _decode_scan(stream, starts, frame.scan(members), store, restart, path)
+            if progressive:
+                _check_progression(band, [m[0] for m in members], coef_bits, path)
+                _decode_progressive_scan(stream, starts, frame.scan(members), store, restart, band, path)
+            else:
+                _decode_scan(stream, starts, frame.scan(members), store, restart, path)
     if frame is None or len(comp_qt) != len(frame.comps):
         raise ValueError(f"{path}: JPEG ends before every component was scanned")
+    if progressive and _would_smooth(coef_bits, comp_qt):
+        raise ValueError(
+            f"{path}: progressive JPEG whose scans leave low-frequency coefficients unrefined "
+            "(libjpeg smooths such blocks; this reader does not) is not supported"
+        )
     planes = [_plane(frame, c, store, comp_qt[i]) for i, c in enumerate(frame.comps)]
     if len(planes) == 1:
         return np.repeat(planes[0][..., None], 3, axis=2)

@@ -1,10 +1,11 @@
 """PNG reader on the standard library and numpy.
 
-Decodes 8-bit grey, grey+alpha, RGB and RGBA images, grey at 1, 2 and 4 bits, and
-palette images at 1, 2, 4 and 8 bits, through all five row filters, to uint8
-[H,W,3] as PIL's ``Image.open(path).convert("RGB")`` does: alpha is dropped, grey
-is replicated (low bit depths scaled to 0..255), palette indices are expanded.
-Adam7 interlacing and 16-bit samples raise ValueError; they are not read.
+Decodes grey at 1, 2, 4, 8 and 16 bits, palette images at 1, 2, 4 and 8 bits, and
+grey+alpha, RGB and RGBA at 8 and 16 bits, through all five row filters, plain or
+Adam7-interlaced, to uint8 [H,W,3] as PIL's ``Image.open(path).convert("RGB")``
+does: alpha is dropped, grey is replicated (low bit depths scaled to 0..255),
+palette indices are expanded, and a 16-bit sample gives its high byte, except
+16-bit grey, which PIL opens as mode I;16 and clips at 255 (see _to_rgb8).
 """
 
 from __future__ import annotations
@@ -17,7 +18,11 @@ import numpy as np
 SIGNATURE = b"\x89PNG\r\n\x1a\n"
 
 # colour type -> (samples a pixel, allowed bit depths)
-_COLOUR_TYPES = {0: (1, (1, 2, 4, 8)), 2: (3, (8,)), 3: (1, (1, 2, 4, 8)), 4: (2, (8,)), 6: (4, (8,))}
+_COLOUR_TYPES = {
+    0: (1, (1, 2, 4, 8, 16)), 2: (3, (8, 16)), 3: (1, (1, 2, 4, 8)), 4: (2, (8, 16)), 6: (4, (8, 16)),
+}
+# Adam7's seven passes: (first column, first row, column step, row step)
+_ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
 
 
 def _chunks(data: bytes, path: str):
@@ -45,11 +50,11 @@ def _paeth_row(cur: bytearray, prev: bytes, bpp: int) -> None:
         cur[i] = (cur[i] + pred) & 0xFF
 
 
-def _unfilter(raw: bytes, h: int, stride: int, bpp: int, path: str) -> np.ndarray:
-    """The filtered scanlines (a filter byte before each) -> uint8 [h, stride]."""
-    if len(raw) < h * (stride + 1):
-        raise ValueError(f"{path}: PNG image data is {len(raw)} bytes, need {h * (stride + 1)}")
-    rows = np.frombuffer(raw, np.uint8, count=h * (stride + 1)).reshape(h, stride + 1)
+def _unfilter(raw: bytes, offset: int, h: int, stride: int, bpp: int, path: str) -> np.ndarray:
+    """The h filtered scanlines at raw[offset:] (a filter byte before each) -> uint8 [h, stride]."""
+    if len(raw) < offset + h * (stride + 1):
+        raise ValueError(f"{path}: PNG image data is {len(raw)} bytes, need {offset + h * (stride + 1)}")
+    rows = np.frombuffer(raw, np.uint8, count=h * (stride + 1), offset=offset).reshape(h, stride + 1)
     out = np.zeros((h, stride), np.uint8)
     prev = np.zeros(stride, np.uint8)
     for y in range(h):
@@ -79,6 +84,42 @@ def _unfilter(raw: bytes, h: int, stride: int, bpp: int, path: str) -> np.ndarra
     return out
 
 
+def _samples(rows: np.ndarray, w: int, channels: int, depth: int) -> np.ndarray:
+    """Unfiltered rows uint8 [h, stride] -> samples [h, w, channels] (uint8, or uint16 at 16
+    bits, big-endian in the file); packed samples come most significant bits first."""
+    h, stride = rows.shape
+    if depth < 8:
+        bits = np.unpackbits(rows, axis=1).reshape(h, stride * 8 // depth, depth)[:, :w]
+        return (bits * (1 << np.arange(depth - 1, -1, -1, dtype=np.uint8))).sum(axis=2, dtype=np.uint8)[..., None]
+    if depth == 16:
+        pairs = rows.reshape(h, w, channels, 2).astype(np.uint16)
+        return (pairs[..., 0] << 8) | pairs[..., 1]
+    return rows.reshape(h, w, channels)
+
+
+def _to_rgb8(samples: np.ndarray, ctype: int, depth: int, palette, path: str) -> np.ndarray:
+    """Samples [h, w, channels] -> uint8 [h, w, 3], as PIL's convert("RGB")."""
+    if ctype == 3:
+        if palette is None:
+            raise ValueError(f"{path}: palette PNG has no PLTE chunk")
+        if int(samples.max(initial=0)) >= palette.shape[0]:
+            raise ValueError(f"{path}: PNG palette index beyond its {palette.shape[0]} entries")
+        return palette[samples[..., 0]]
+    if depth == 16 and ctype == 0:
+        # PIL opens 16-bit grey as mode I;16, whose conversion to RGB clips each sample
+        # at 255 (7 -> 7, 4007 -> 255) instead of taking its high byte as it does for
+        # the other colour types. The reference reads textures through PIL, so this is
+        # the reference's texture; do not "fix" it.
+        samples = np.minimum(samples, 255).astype(np.uint8)
+    elif depth == 16:
+        samples = (samples >> 8).astype(np.uint8)
+    elif depth < 8:  # grey at 1, 2 or 4 bits, scaled to 0..255
+        samples = (samples.astype(np.uint16) * 255 // ((1 << depth) - 1)).astype(np.uint8)
+    if ctype in (0, 4):
+        return np.repeat(samples[..., :1], 3, axis=2)
+    return np.ascontiguousarray(samples[..., :3])
+
+
 def read_png_rgb8(path: str) -> np.ndarray:
     """Decode a PNG file -> uint8 [H,W,3] (PIL's ``.convert("RGB")``)."""
     with open(path, "rb") as f:
@@ -96,32 +137,25 @@ def read_png_rgb8(path: str) -> np.ndarray:
     if ihdr is None:
         raise ValueError(f"{path}: PNG has no IHDR chunk")
     w, h, depth, ctype, _, _, interlace = ihdr
-    if interlace:
-        raise ValueError(f"{path}: Adam7-interlaced PNG is not supported")
-    if depth == 16:
-        raise ValueError(f"{path}: 16-bit PNG samples are not supported")
     if ctype not in _COLOUR_TYPES or depth not in _COLOUR_TYPES[ctype][1]:
         raise ValueError(f"{path}: PNG colour type {ctype} at {depth} bits is not supported")
+    if interlace not in (0, 1):
+        raise ValueError(f"{path}: PNG interlace method {interlace} is not supported")
     channels = _COLOUR_TYPES[ctype][0]
-    stride = -(-w * channels * depth // 8)
-    rows = _unfilter(zlib.decompress(b"".join(idat)), h, stride, max(1, channels * depth // 8), path)
-
-    if depth < 8:  # packed samples, most significant bits first
-        bits = np.unpackbits(rows, axis=1).reshape(h, stride * 8 // depth, depth)[:, :w]
-        samples = (bits * (1 << np.arange(depth - 1, -1, -1, dtype=np.uint8))).sum(axis=2, dtype=np.uint8)
-    else:
-        samples = rows.reshape(h, w, channels)
-    if ctype == 3:
-        if palette is None:
-            raise ValueError(f"{path}: palette PNG has no PLTE chunk")
-        if int(samples.max(initial=0)) >= palette.shape[0]:
-            raise ValueError(f"{path}: PNG palette index beyond its {palette.shape[0]} entries")
-        return palette[samples.reshape(h, w)]
-    if ctype == 0:
-        grey = samples.reshape(h, w)
-        if depth < 8:
-            grey = (grey.astype(np.uint16) * 255 // ((1 << depth) - 1)).astype(np.uint8)
-        return np.repeat(grey[..., None], 3, axis=2)
-    if ctype == 4:
-        return np.repeat(samples[..., :1], 3, axis=2)
-    return np.ascontiguousarray(samples[..., :3])
+    bpp = max(1, channels * depth // 8)
+    raw = zlib.decompress(b"".join(idat))
+    if not interlace:
+        stride = -(-w * channels * depth // 8)
+        samples = _samples(_unfilter(raw, 0, h, stride, bpp, path), w, channels, depth)
+    else:  # Adam7: each pass is an image of its own, filtered row by row; empty ones take no bytes
+        samples = np.zeros((h, w, 1 if depth < 8 else channels), np.uint16 if depth == 16 else np.uint8)
+        offset = 0
+        for x0, y0, dx, dy in _ADAM7:
+            pw, ph = -(-(w - x0) // dx), -(-(h - y0) // dy)
+            if pw <= 0 or ph <= 0:
+                continue
+            stride = -(-pw * channels * depth // 8)
+            rows = _unfilter(raw, offset, ph, stride, bpp, path)
+            samples[y0::dy, x0::dx] = _samples(rows, pw, channels, depth)
+            offset += ph * (stride + 1)
+    return _to_rgb8(samples, ctype, depth, palette, path)

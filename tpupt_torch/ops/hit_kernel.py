@@ -51,14 +51,19 @@ CULL_ORIGIN = 1.0e30  # |o|_1 of a ray that may cull: keeps the box test finite
 launches = 0  # kernel launches since the last reset (plain-version calls not counted)
 
 
+_TABLE_FIELDS = ("sph_c1", "sph_c2", "sph_r", "quad_n", "quad_q", "quad_u", "quad_v", "quad_w", "quad_d")
+
+
 def tables(sd):
     """Scene tables in the reference kernel's layout: sph [7,S], quad [16,Q] f32.
 
-    Cached on the SceneData, with the kernel's packed tables: the tables are constant
-    for a compiled scene.
+    Cached on the SceneData, with the kernel's packed tables, and made anew when a field
+    they are made from was replaced or edited in place (its tensor or its version moved).
     """
+    src = tuple(getattr(sd, f) for f in _TABLE_FIELDS)
+    versions = tuple(t._version for t in src)
     cached = getattr(sd, "_hit_tables", None)
-    if cached is None:
+    if cached is None or any(a is not b for a, b in zip(cached[0], src)) or cached[1] != versions:
         sph = torch.cat([sd.sph_c1.T, sd.sph_c2.T, sd.sph_r[None, :]], dim=0).contiguous()
         quad = torch.cat(
             [sd.quad_n.T, sd.quad_q.T, sd.quad_u.T, sd.quad_v.T, sd.quad_w.T, sd.quad_d[None, :]],
@@ -66,9 +71,9 @@ def tables(sd):
         ).contiguous()
         if sph.device.type == "cuda":
             _packed(sph, quad)
-        cached = (sph, quad)
+        cached = (src, versions, (sph, quad))
         sd._hit_tables = cached
-    return cached
+    return cached[2]
 
 
 def real_rows(sph, quad):
