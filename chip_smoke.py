@@ -24,7 +24,14 @@ The main path is the forward render (render_image) of:
   of PIL's decode and timed;
 - the scene-6 stand-in (32 spp) and bigmesh (25 spp) compiled with bvh=True: their meshes
   through the stackless BVH walk (K4), once an iteration;
-and the gradient path (render_film_grads: the detached estimator, each trip
+Each of these renders runs as the port runs a CUDA launch: CUDA graphs whose wavefront
+loops run on the card (render/graph.py; conditional WHILE nodes, the stage condition
+kernel K5 of csrc/loop_cond.cu), and then again by the eager loop, the graphs' plain
+version: the two films must be bit-equal, with equal rays and iterations (the stand-in
+renders of scenes 2, 5 and 7; their twins are held to those). Both routes' wall time,
+paths/s, iterations, ms an iteration, peak memory and the graphs' capture time go into a
+"routes" JSON line; --profile adds each route's device busy share (a "profiles" line).
+And the gradient path (render_film_grads: the detached estimator, each trip
 checkpointed and replayed in the backward pass) of the Cornell box at bench.py's
 `grads` configuration (128x128, 32 spp, 4 lanes a pixel) and at 600x600 (4 spp),
 K1 launching in every forward trip and again in its replay; the card's gradients
@@ -122,8 +129,16 @@ GRADS = {"grads": dict(width=128, spp=32, replicas=4), "grads 600": dict(width=6
 GRAD_REL_L1 = 2e-2  # card against CPU gradients, per field (tests/test_torch_cuda.py)
 
 
+T0 = time.perf_counter()
+
+
 def log(msg=""):
     print(msg, flush=True)
+
+
+def phase(name):
+    """A line with the seconds since the script started, at the start of each phase."""
+    log(f"[{time.perf_counter() - T0:.1f} s] {name}")
 
 
 def card_line() -> str:
@@ -485,6 +500,50 @@ def bvh_batches(sd, cam, dev, seed):
     return {"camera": (o, d, t_in), "bounce": bounce_rays(o, d, t, n, seed)}
 
 
+def check_stage_cond(dev):
+    """K5 (the stage condition) against its plain version on the card at the lane counts and
+    thresholds of the Cornell launch's stages, with every lane, some or none alive, and at
+    thresholds on either side of the count; then its time at 360000 lanes
+    -> (mismatches, max |error|, (ms, plain_ms, bound_ms, bound_by))."""
+    from tpupt_torch.ops import loop_cond
+    from tpupt_torch.render.integrator import compaction_thresholds
+
+    rng = np.random.default_rng(40)
+    b, k, spp_limit = 360000, 8, 32
+    thresholds = compaction_thresholds(b)
+    bad, err, cases = 0, 0.0, 0
+    for n, thr in zip([b] + thresholds[:-1], thresholds):
+        for p_alive in (0.0, 0.3, 1.0):
+            alive = torch.from_numpy(rng.uniform(size=n) < p_alive).to(dev)
+            sample = torch.from_numpy(rng.integers(0, k + 2, n).astype(np.int32)).to(dev)
+            sample0 = torch.from_numpy(rng.integers(0, spp_limit + 8, n).astype(np.int32)).to(dev)
+            n_work = int(loop_cond.stage_cond_plain(alive, sample, sample0, k, spp_limit, 0)[0])
+            for t in sorted({thr, n_work, max(n_work - 1, 0)}):
+                it = torch.zeros(1, dtype=torch.int64, device=dev)
+                out = loop_cond.stage_cond(alive, sample, sample0, k, spp_limit, t, it, bump=True)
+                ref = loop_cond.stage_cond_plain(alive, sample, sample0, k, spp_limit, t)
+                torch.cuda.synchronize()
+                e = float((out - ref).abs().max()) + abs(int(it) - 1)
+                bad += int(e != 0)
+                err = max(err, e)
+                cases += 1
+    n = b
+    alive = torch.from_numpy(rng.uniform(size=n) < 0.5).to(dev)
+    sample = torch.from_numpy(rng.integers(0, k + 2, n).astype(np.int32)).to(dev)
+    sample0 = torch.from_numpy(rng.integers(0, spp_limit + 8, n).astype(np.int32)).to(dev)
+    out = torch.empty(2, dtype=torch.int64, device=dev)
+    scratch = torch.zeros(2, dtype=torch.int32, device=dev)
+    ms = cuda_ms(lambda: loop_cond.stage_cond(alive, sample, sample0, k, spp_limit, thresholds[0], out=out,
+                                              scratch=scratch))
+    plain_ms = cuda_ms(lambda: loop_cond.stage_cond_plain(alive, sample, sample0, k, spp_limit, thresholds[0]))
+    nbytes = n * (1 + 4 + 4) + 2 * 8  # alive, sample, sample0 in; the count and the decision out
+    bound_ms, bound_by = bound(0, nbytes)
+    log(f"K5 stage_cond: {cases} cases on Cornell's stages ({[b] + thresholds[:-1]} lanes), {bad} mismatches, "
+        f"max |error| {err}; at B={n}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+        f"({bound_by}: {nbytes} B; integer work only); no single PyTorch call computes it")
+    return bad, err, (ms, plain_ms, bound_ms, bound_by)
+
+
 def masked_rays(rays):
     """A batch with t_in = 0 on every other lane (dead) and NaN in the origin or the
     direction of one lane in 61."""
@@ -589,25 +648,37 @@ def image_stats(mean):
     return float(fin.mean()), float(vals.mean()), float(vals.std() / math.sqrt(max(len(vals), 1)))
 
 
-def render(label, compiled, cam, counters, kernel_ms):
-    """One render_image run with the kernel counts zeroed first -> (mean, stats, launches)."""
-    from tpupt_torch.render.renderer import render_image
+ROUTES = {}  # each compared render: the graph route's numbers and the eager route's
 
+
+def render(label, compiled, cam, counters, kernel_ms, compare=True):
+    """One render_image run with the kernel counts zeroed first -> (mean, stats, launches).
+
+    On the card the launches run as graphs; K5, the stage condition, launches in every
+    render. compare: render again by the eager loop (the graphs' plain version, its
+    launches not counted), which must give the same film bit for bit, rays and iterations."""
+    from tpupt_torch.render.renderer import plain_launches, render_image
+
+    counters = list(counters) + ["K5"]
     zero_counts()
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     _, mean, st = render_image(compiled, cam, seed=0, progress=False)
     torch.cuda.synchronize()
     launches = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
     fin, mu, _ = image_stats(mean)
     shares = ", ".join(
         f"{k} {launches[k]} launches (<= {100 * launches[k] * kernel_ms[k] / 1e3 / st.wall_s:.2f}% of wall)"
         for k in counters
     )
+    replay_ms = 1e3 * (st.wall_s - st.capture_s) / max(st.iterations, 1)
     log(f"render {label} {cam.image_width}x{cam.image_height} {cam.samples_per_pixel} spp max_depth "
-        f"{cam.max_depth} on cuda: {st.wall_s:.3f} s, {st.paths} paths, {st.paths_per_s:.4e} paths/s, "
-        f"{st.rays} rays, {st.rays_per_s:.4e} rays/s, {st.launches} launches, {st.iterations} wavefront "
-        f"iterations ({1e3 * st.wall_s / max(st.iterations, 1):.3f} ms each); {shares}; finite share "
-        f"{fin:.6f}, mean radiance {mu:.6f}")
+        f"{cam.max_depth} on cuda (graphs): {st.wall_s:.3f} s ({st.capture_s:.3f} s capture and "
+        f"instantiation), {st.paths} paths, {st.paths_per_s:.4e} paths/s, {st.rays} rays, "
+        f"{st.rays_per_s:.4e} rays/s, {st.launches} launches, {st.iterations} wavefront iterations "
+        f"({1e3 * st.wall_s / max(st.iterations, 1):.3f} ms each, {replay_ms:.3f} ms without the "
+        f"capture), peak memory {peak:.3f} GiB; {shares}; finite share {fin:.6f}, mean radiance {mu:.6f}")
     for k in counters:
         if launches[k] == 0:
             raise SystemExit(f"chip_smoke: the {label} render never launched {k}")
@@ -617,6 +688,30 @@ def render(label, compiled, cam, counters, kernel_ms):
     if mean.shape != (cam.image_height, cam.image_width, 3) or fin < 0.99 or not mu > 0.0:
         raise SystemExit(f"chip_smoke: the {label} film is wrong: shape {mean.shape}, finite share "
                          f"{fin}, mean {mu}")
+    if compare:
+        torch.cuda.reset_peak_memory_stats()
+        with plain_launches():
+            _, mean_e, st_e = render_image(compiled, cam, seed=0, progress=False)
+        torch.cuda.synchronize()
+        peak_e = torch.cuda.max_memory_allocated() / 2**30
+        equal = (np.array_equal(mean, mean_e, equal_nan=True) and st.rays == st_e.rays
+                 and st.iterations == st_e.iterations)
+        log(f"render {label}, eager loop (plain version): {st_e.wall_s:.3f} s, {st_e.paths_per_s:.4e} "
+            f"paths/s, {st_e.iterations} iterations ({1e3 * st_e.wall_s / max(st_e.iterations, 1):.3f} ms "
+            f"each), peak memory {peak_e:.3f} GiB; graphs against it: film bit-equal, rays and iterations "
+            f"equal {equal}; paths/s x{st.paths_per_s / st_e.paths_per_s:.3f}")
+        ROUTES[label] = dict(
+            graphs=dict(wall_s=st.wall_s, capture_s=st.capture_s, paths_per_s=st.paths_per_s,
+                        iterations=st.iterations, ms_per_iteration=1e3 * st.wall_s / max(st.iterations, 1),
+                        replay_ms_per_iteration=replay_ms, peak_gib=peak, launches=st.launches),
+            eager=dict(wall_s=st_e.wall_s, paths_per_s=st_e.paths_per_s, iterations=st_e.iterations,
+                       ms_per_iteration=1e3 * st_e.wall_s / max(st_e.iterations, 1), peak_gib=peak_e),
+            bit_equal=equal, rays=st.rays)
+        if not equal:
+            diff = np.abs(mean.astype(np.float64) - mean_e)
+            raise SystemExit(f"chip_smoke: the {label} render differs between the graphs and the eager loop: "
+                             f"rays {st.rays} vs {st_e.rays}, iterations {st.iterations} vs {st_e.iterations}, "
+                             f"{int((diff > 0).any(-1).sum())} pixels differ, max {np.nanmax(diff):.3e}")
     return mean, st, launches
 
 
@@ -684,18 +779,19 @@ def random_mesh_scene(width, spp, n=60_000, seed=2):
 
 
 def zero_counts():
-    from tpupt_torch.ops import bvh_kernel, hit_kernel, tri_kernel
+    from tpupt_torch.ops import bvh_kernel, hit_kernel, loop_cond, tri_kernel
 
     hit_kernel.launches = 0
     tri_kernel.launches.update(flat=0, two_level=0)
     bvh_kernel.launches = 0
+    loop_cond.launches = 0
 
 
 def read_counts():
-    from tpupt_torch.ops import bvh_kernel, hit_kernel, tri_kernel
+    from tpupt_torch.ops import bvh_kernel, hit_kernel, loop_cond, tri_kernel
 
     return {"K1": hit_kernel.launches, "K2": tri_kernel.launches["flat"],
-            "K3": tri_kernel.launches["two_level"], "K4": bvh_kernel.launches}
+            "K3": tri_kernel.launches["two_level"], "K4": bvh_kernel.launches, "K5": loop_cond.launches}
 
 
 def grad_box_scene(width, spp):
@@ -944,7 +1040,7 @@ def gloo_two_ranks(dev, m_cornell, st_cornell, kernel_ms, width=600):
 
     scene, cam = everything_scene(width, SHARDED_SPP["scene6"])  # one rank, as the two ranks render it
     m_s6, st_s6, _ = render("scene 6 stand-in (one rank for the two-rank phase)", scene.compile(device=dev),
-                            cam, ["K1", "K2"], kernel_ms)
+                            cam, ["K1", "K2"], kernel_ms, compare=False)
     one = {"cornell": (m_cornell, st_cornell), "scene6": (m_s6, st_s6)}
     scene, cam = grad_box_scene(16, 8)
     rad1, g1 = render_grads(scene.compile(device=dev), cam, np.arange(256, dtype=np.int32), spp=8, seed=0)
@@ -1097,8 +1193,8 @@ def main(argv=None) -> int:
 
     # ---- build every library of the port, one compiler per source, all at once ----
     t0 = time.perf_counter()
-    reports = build.build_all(["hit_kernel", "tri_kernel", "bvh_kernel", "native_host"])
-    log(f"build (nvcc x3, g++ x1, in parallel): {time.perf_counter() - t0:.2f} s")
+    reports = build.build_all(["hit_kernel", "tri_kernel", "bvh_kernel", "loop_cond", "native_host"])
+    log(f"build (nvcc x4, g++ x1, in parallel): {time.perf_counter() - t0:.2f} s")
     for name, rep in reports.items():
         for line in rep.splitlines():
             if any(w in line for w in ("registers", "smem", "spill")):
@@ -1129,6 +1225,9 @@ def main(argv=None) -> int:
     log(json.dumps({"decode_ms": decode_ms, "card": card}))
     log(json.dumps({"grads": grads}))
     log(json.dumps({"sharded": sharded, "card": card}))
+    log(json.dumps({"routes": ROUTES, "card": card}))
+    if args.profile:
+        log(json.dumps({"profiles": PROFILES, "card": card}))
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
@@ -1145,6 +1244,7 @@ def run(args, dev, hit_kernel, render_image, cornell_box_scene, balls_scene, eve
             return environment_map_scene(width, spp, hdr_env=True)
 
     # ---- the scenes (host set-up: OBJ parse, SAH build, packing, the env's alias table) ----
+    phase("scene set-up")
     t0 = time.perf_counter()
     cscene, ccam = cornell_box_scene(600, SPP["cornell"])
     c_compiled = cscene.compile(device=dev)
@@ -1173,6 +1273,7 @@ def run(args, dev, hit_kernel, render_image, cornell_box_scene, balls_scene, eve
     bvh_shapes = {"scene6": (s6b, s6cam), "bigmesh": (bigb, bcam)}
 
     # ---- every kernel against its plain version on the card ----
+    phase("kernels against their plain versions")
     balls_scene_, balls_cam = balls_scene(600, SPP["balls"])
     balls = balls_scene_.compile(device=dev)
     k1_shapes = {  # K1's four table shapes: (compiled scene, camera, box of the random rays)
@@ -1215,10 +1316,12 @@ def run(args, dev, hit_kernel, render_image, cornell_box_scene, balls_scene, eve
             n, e = check_bvh(compiled.data, rays, f"{shape}, {label}")
             bad["K4"] += n
             err["K4"] = max(err["K4"], e)
+    bad["K5"], err["K5"], k5_timing = check_stage_cond(dev)
     if any(bad.values()):
         raise SystemExit(f"chip_smoke: kernels disagree with their plain versions: {bad}")
 
     # ---- timings at the main path's lane counts ----
+    phase("kernel timings")
     k1_times = {}
     for shape, (compiled, _, _) in k1_shapes.items():
         sph, quad = hit_kernel.tables(compiled.data)
@@ -1246,9 +1349,11 @@ def run(args, dev, hit_kernel, render_image, cornell_box_scene, balls_scene, eve
     b4 = k4_times["scene6"]["bounce"]
     bounce["K4"] = (b4["ms"], b4["plain_ms"], b4["bound_ms"], b4["bound_by"])
     mxu = check_mxu(s6b.data, k4_rays["scene6"]["camera"], same_rays["scene6"]["camera"]["ms"])
+    timing["K5"] = k5_timing
     kernel_ms = {k: v[0] for k, v in timing.items()}
 
-    # ---- the main path: four renders through render_image ----
+    # ---- the main path: the renders through render_image, each by both routes ----
+    phase("renders, graphs and eager loop")
     m_cornell, st_cornell, cl = render("cornell", c_compiled, ccam, ["K1"], kernel_ms)
     _, _, s6l = render("scene 6 stand-in", s6, s6cam, ["K1", "K2"],
                        dict(kernel_ms, K1=k1_times["scene6"]["camera"]["ms"]))
@@ -1259,7 +1364,7 @@ def run(args, dev, hit_kernel, render_image, cornell_box_scene, balls_scene, eve
     # scenes 2, 5 and 7: their textures through the port's PNG and JPEG readers, from the
     # baseline stand-ins and then from their twins (progressive JPEG, 16-bit and Adam7 PNG),
     # which decode to the same bytes: the two renders must be bit-equal
-    textured = {}
+    textured, textured_k5 = {}, {}
     for sid in (2, 5, 7):
         name, build_fn = SCENES[sid]
         films = []
@@ -1269,8 +1374,10 @@ def run(args, dev, hit_kernel, render_image, cornell_box_scene, balls_scene, eve
                 compiled = scene.compile(device=dev)
             if not compiled.data.has_image_textures or (sid == 7) != compiled.data.has_normal_maps:
                 raise SystemExit(f"chip_smoke: scene {sid} did not compile its image textures")
-            mean, st, tl = render(f"scene {sid} ({name}, {what})", compiled, cam, ["K1"], kernel_ms)
+            mean, st, tl = render(f"scene {sid} ({name}, {what})", compiled, cam, ["K1"], kernel_ms,
+                                  compare=what != "twins")
             textured[f"scene{sid}" + (" twins" if what == "twins" else "")] = tl["K1"]
+            textured_k5[f"scene{sid}" + (" twins" if what == "twins" else "")] = tl["K5"]
             films.append((mean, st.rays))
         (m_a, rays_a), (m_b, rays_b) = films
         equal = np.array_equal(m_a, m_b, equal_nan=True) and rays_a == rays_b
@@ -1283,7 +1390,7 @@ def run(args, dev, hit_kernel, render_image, cornell_box_scene, balls_scene, eve
                         dict(kernel_ms, K1=k1_times["scene6"]["camera"]["ms"]))
     _, _, bbl = render("bigmesh stand-in, bvh=True", bigb, bcam, ["K4"],
                        dict(kernel_ms, K4=k4_times["bigmesh"]["camera"]["ms"]))
-    launches = {"K1": cl["K1"], "K2": s6l["K2"], "K3": bl["K3"], "K4": s6bl["K4"]}
+    launches = {"K1": cl["K1"], "K2": s6l["K2"], "K3": bl["K3"], "K4": s6bl["K4"], "K5": cl["K5"]}
     k1_launches = {"cornell": cl["K1"], "scene6": s6l["K1"], "balls": ball["K1"], "env": el["K1"]}
     for shape, n in k1_launches.items():  # which shape K1's time above its bound costs the most
         over = {batch: n * (v["ms"] - v["bound_ms"]) for batch, v in k1_times[shape].items()}
@@ -1291,6 +1398,7 @@ def run(args, dev, hit_kernel, render_image, cornell_box_scene, balls_scene, eve
             f"{over['bounce']:.3f} ms on bounce rays")
 
     # ---- small renders on the card against the same renders on the cpu ----
+    phase("small renders, card against cpu")
     m_cpu, se_c = compare_small("cornell", cornell_box_scene, dev)
     compare_small("mesh (5000 triangles, flat cluster route)", small_mesh_scene, dev)
     compare_small("mesh (5000 triangles, BVH route)", small_mesh_scene, dev, bvh=True)
@@ -1313,6 +1421,7 @@ def run(args, dev, hit_kernel, render_image, cornell_box_scene, balls_scene, eve
         raise SystemExit("chip_smoke: the environment-map film differs from the cpu render")
 
     # ---- gradients: render_film_grads through K1 (and K2), forward trips and their replays ----
+    phase("gradients")
     grads = {}
     for i, (label, cfg) in enumerate(GRADS.items()):
         gscene, gcam = cornell_box_scene(cfg["width"], cfg["spp"])
@@ -1327,12 +1436,15 @@ def run(args, dev, hit_kernel, render_image, cornell_box_scene, balls_scene, eve
         "mesh (5000 triangles, BVH route)", lambda: small_mesh_scene(16, 8), dev, "K4", bvh=True)
 
     # ---- the sharded phases: a world of 1 over NCCL, then two gloo ranks on the one card ----
+    phase("sharded phases")
     sharded = {"nccl, world of 1": nccl_world_of_one(c_compiled, ccam, m_cornell, st_cornell)}
     sharded.update(gloo_two_ranks(dev, m_cornell, st_cornell, kernel_ms))
+    phase("dry run and entry()")
     sharded.update(dry_run())
     entry_k1 = entry_on_the_card()
 
     if args.profile:
+        phase("profiles")
         for label, build, bvh in (("cornell", cornell_box_scene, None), ("scene6", everything_scene, None),
                                   ("bigmesh", bigmesh_scene, None), ("balls", balls_scene, None),
                                   ("env", env_build, None),
@@ -1349,6 +1461,7 @@ def run(args, dev, hit_kernel, render_image, cornell_box_scene, balls_scene, eve
         "K2": ("K2 closest_tri_flat", "tpupt_torch/csrc/tri_kernel.cu", "tpupt/ops/pallas_tri.py:300"),
         "K3": ("K3 closest_tri_two_level", "tpupt_torch/csrc/tri_kernel.cu", "tpupt/ops/pallas_tri.py:632"),
         "K4": ("K4 closest_tri_bvh", "tpupt_torch/csrc/bvh_kernel.cu", "tpupt/ops/bvh.py:362"),
+        "K5": ("K5 stage_cond", "tpupt_torch/csrc/loop_cond.cu", "tpupt/render/integrator.py:306"),
     }
     kernels = []
     for k, (name, source, replaces) in meta.items():
@@ -1371,6 +1484,9 @@ def run(args, dev, hit_kernel, render_image, cornell_box_scene, balls_scene, eve
         # forward trips and replays
         if k == "K1":
             paths = dict(k1_launches, **textured, **{"scene6 bvh": s6bl["K1"], "entry": entry_k1})
+        elif k == "K5":  # every render: a stage's first test and one an iteration, on the card
+            paths = {"cornell": cl["K5"], "scene6": s6l["K5"], "bigmesh": bl["K5"], "balls": ball["K5"],
+                     "env": el["K5"], **textured_k5, "scene6 bvh": s6bl["K5"], "bigmesh bvh": bbl["K5"]}
         else:
             paths = {"K2": {"scene6": s6l["K2"]}, "K3": {"bigmesh": bl["K3"]},
                      "K4": {"scene6 bvh": s6bl["K4"], "bigmesh bvh": bbl["K4"]}}[k]
@@ -1380,7 +1496,7 @@ def run(args, dev, hit_kernel, render_image, cornell_box_scene, balls_scene, eve
                 if v.get("launches", {}).get(k):
                     paths[f"{label}, {what} (a rank)"] = v["launches"][k]
         for label, g in grads.items():
-            if g["launches_forward"][k]:
+            if g["launches_forward"].get(k):
                 paths[f"{label} forward"] = g["launches_forward"][k]
                 paths[f"{label} replay"] = g["launches_replay"][k]
         kernels[-1]["launches_by_path"] = paths
@@ -1442,18 +1558,41 @@ def profile_grads(out_dir, compiled, cam, spp, replicas):
         f"device kernels a trip (its replay of the forward trip included)")
 
 
+PROFILES = {}  # --profile: each render's device busy share by route
+
+
 def profile_render(out_dir, label, render_image, compiled, cam):
-    """torch.profiler over a 2 spp render: kernel time by name, device busy share."""
+    """Device busy share of the second launch of a 2 spp render (one sample a launch) by each
+    route. torch.profiler over the graphs lost kernel records and then hit an illegal address
+    (PERF.md §7), so it runs over the eager loop's second launch alone: its kernels are the
+    graphs' kernels at the same shapes, with bit-equal outputs. The share is that launch's
+    device kernel time over the wall time of the same launch by each route, each measured
+    without the profiler (the graphs' second launch is a replay)."""
     from torch.profiler import ProfilerActivity, profile
 
-    os.makedirs(out_dir, exist_ok=True)
-    render_image(compiled, cam, progress=False)  # warm-up
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        _, _, st = render_image(compiled, cam, progress=False)
+    from tpupt_torch.render.renderer import plain_launches
+
+    def second_launch(route, prof=None):
+        stamps = []
+
+        def on_launch(_mean, _done):
+            torch.cuda.synchronize()
+            stamps.append(time.perf_counter())
+            if prof is not None and len(stamps) == 1:
+                prof.start()
+
+        with plain_launches() if route == "eager" else contextlib.nullcontext():
+            _, _, st = render_image(compiled, cam, progress=False, samples_per_launch=1, on_launch=on_launch)
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+        if prof is not None:
+            prof.stop()
+        if st.launches != 2:
+            raise SystemExit(f"chip_smoke: the {label} profile render made {st.launches} launches, not 2")
+        return stamps[1] - stamps[0], st
+
+    os.makedirs(out_dir, exist_ok=True)
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    second_launch("eager", prof)
     events = prof.key_averages()
     path = os.path.join(out_dir, f"render_profile_{label}.txt")
     with open(path, "w") as f:
@@ -1466,10 +1605,15 @@ def profile_render(out_dir, label, render_image, compiled, cam):
             for name in ("closest_sphere_quad_kernel", "closest_tri_flat_kernel",
                          "closest_tri_two_level_kernel", "closest_tri_bvh_kernel")}
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:5]
-    log(f"profile {label} {cam.image_width}x{cam.image_height} 2 spp (under the profiler): wall "
-        f"{wall:.3f} s, {st.iterations} iterations, device kernel time {dev_us / 1e3:.3f} ms "
-        f"({100 * dev_us / 1e6 / wall:.2f}% busy), {n_kernels} device kernels "
-        f"({n_kernels / max(st.iterations, 1):.0f} per iteration); hand-written kernels "
+    walls = {route: second_launch(route) for route in ("eager", "graphs")}
+    PROFILES[label] = dict(device_ms=dev_us / 1e3, kernels=n_kernels, **{
+        route: dict(launch_s=wall, busy=dev_us / 1e6 / wall, iterations_both_launches=st.iterations,
+                    capture_s=st.capture_s) for route, (wall, st) in walls.items()})
+    log(f"profile {label} {cam.image_width}x{cam.image_height} 2 spp, second launch: device kernel time "
+        f"{dev_us / 1e3:.3f} ms in {n_kernels} device kernels (eager loop, under the profiler); wall of the "
+        f"launch " + ", ".join(f"{route} {wall:.4f} s ({100 * dev_us / 1e6 / wall:.2f}% busy)"
+                               for route, (wall, _) in walls.items())
+        + f"; {walls['graphs'][1].iterations} iterations in both launches; hand-written kernels "
         + ", ".join(f"{k} {v / 1e3:.3f} ms" for k, v in ours.items() if v)
         + "; top: " + "; ".join(f"{e.key[:60]} {e.self_device_time_total / 1e3:.3f} ms" for e in top)
         + f"; table in {path}")

@@ -765,3 +765,163 @@ def test_two_gloo_ranks_on_one_card(cuda, tmp_path):
         mean, rays = torch.load(tmp_path / f"card_rank{r}.pt", weights_only=False)
         assert rays == st_ref.rays
         np.testing.assert_allclose(mean, ref, rtol=1e-5, atol=1e-6)
+
+
+# ---- the launch as CUDA graphs (render/graph.py) against the eager loop ----
+
+
+def _graph_scene(which, cuda):
+    """(compiled, camera, kernel) of a small render whose launch has several stages: the
+    Cornell box (K1), the 5000-triangle mesh on the flat clusters (K2), 60000 random
+    triangles on the two-level clusters (K3), the mesh on the BVH (K4)."""
+    if which == "K1":
+        scene, cam = cornell_box_scene(96, 8)
+        cam.max_depth = 12
+        return scene.compile(device=cuda), cam
+    if which == "K3":
+        scene, cam = random_mesh_scene(64, 4)
+        return scene.compile(device=cuda), cam
+    scene, cam = _mesh_scene(64, 4)
+    return scene.compile(device=cuda, bvh=True if which == "K4" else None), cam
+
+
+@pytest.mark.parametrize("which", ["K1", "K2", "K3", "K4"])
+def test_graph_route_bit_equal_to_eager_loop(cuda, which):
+    """render_image on the card (graphs) against the same render by the eager loop: films
+    bit-equal, rays and iterations equal, and the kernel's launches true under replay
+    (K1, K2 or K3, K4: one an iteration)."""
+    from tpupt_torch.ops import loop_cond
+    from tpupt_torch.render import renderer as R
+
+    compiled, cam = _graph_scene(which, cuda)
+    count = {"K1": lambda: hit_kernel.launches, "K2": lambda: tri_kernel.launches["flat"],
+             "K3": lambda: tri_kernel.launches["two_level"], "K4": lambda: bvh_kernel.launches}[which]
+    before, cond_before = count(), loop_cond.launches
+    _, m_g, st_g = render_image(compiled, cam, progress=False)
+    launched, conds = count() - before, loop_cond.launches - cond_before
+    with R.plain_launches():
+        _, m_e, st_e = render_image(compiled, cam, progress=False)
+    np.testing.assert_array_equal(m_g, m_e)
+    assert (st_g.rays, st_g.iterations) == (st_e.rays, st_e.iterations)
+    assert launched == st_g.iterations > 0
+    assert conds >= st_g.iterations and st_g.capture_s > 0
+
+
+def test_graph_replays_equal_their_first_launch(cuda):
+    """One LaunchGraphs: the first launch (an eager iteration, then the capture) and two
+    replays of the same lanes give the same film, rays and iterations, which are the eager
+    loop's; a render of several launches (each replayed) equals its eager render."""
+    from tpupt_torch.render import renderer as R
+    from tpupt_torch.render.graph import LaunchGraphs
+
+    compiled, cam = _graph_scene("K2", cuda)
+    c = cam.init(cuda)
+    pix = torch.arange(64 * 64, dtype=torch.int32, device=cuda)
+    kw = dict(k=2, r=2, max_depth=cam.max_depth, has_lights=compiled.has_lights, width=64)
+    with R.plain_launches():
+        film_e, rays_e, it_e = R._chunk_film(compiled.data, c, pix, 64 * 64, 0, 4, 0, **kw)
+    with LaunchGraphs() as graphs:
+        runs = []
+        for _ in range(3):
+            film, rays, it = R._chunk_film(compiled.data, c, pix, 64 * 64, 0, 4, 0, graphs=graphs, **kw)
+            runs.append((film.clone(), rays, it))
+    for film, rays, it in runs:
+        assert torch.equal(film, film_e) and (rays, it) == (rays_e, it_e)
+    _, m_g, st_g = render_image(compiled, cam, samples_per_launch=1, progress=False)
+    with R.plain_launches():
+        _, m_e, st_e = render_image(compiled, cam, samples_per_launch=1, progress=False)
+    assert st_g.launches == 4
+    np.testing.assert_array_equal(m_g, m_e)
+    assert (st_g.rays, st_g.iterations) == (st_e.rays, st_e.iterations)
+
+
+def test_graph_launch_without_work(cuda):
+    """A launch whose lanes all start at spp_limit (a mesh rank past the samples) gives the
+    eager loop's zero film, rays and iterations, without capturing anything."""
+    from tpupt_torch.render import renderer as R
+    from tpupt_torch.render.graph import LaunchGraphs
+
+    compiled, cam = _graph_scene("K1", cuda)
+    c = cam.init(cuda)
+    pix = torch.arange(1024, dtype=torch.int32, device=cuda)
+    kw = dict(k=2, r=2, max_depth=cam.max_depth, has_lights=compiled.has_lights, width=cam.image_width)
+    with R.plain_launches():
+        film_e, rays_e, it_e = R._chunk_film(compiled.data, c, pix, 1024, 8, 8, 0, **kw)
+    with LaunchGraphs() as graphs:
+        film, rays, it = R._chunk_film(compiled.data, c, pix, 1024, 8, 8, 0, graphs=graphs, **kw)
+        assert graphs.capture_s == 0.0
+    assert torch.equal(film, film_e) and (rays, it) == (rays_e, it_e) == (0, 0)
+
+
+def test_graph_route_under_profile_dir_and_debug_checks(cuda, tmp_path):
+    """render_image(profile_dir=..., debug_checks=True) on the graph route writes its trace
+    and gives the eager loop's film."""
+    from tpupt_torch.render import renderer as R
+
+    compiled, cam = _graph_scene("K1", cuda)
+    _, m_g, st_g = render_image(compiled, cam, progress=False, profile_dir=str(tmp_path), debug_checks=True)
+    with R.plain_launches():
+        _, m_e, st_e = render_image(compiled, cam, progress=False)
+    assert (tmp_path / "render_rank0.json").stat().st_size > 0
+    np.testing.assert_array_equal(m_g, m_e)
+    assert (st_g.rays, st_g.iterations) == (st_e.rays, st_e.iterations) and st_g.capture_s > 0
+
+
+def test_graph_capture_failure_raises(cuda, monkeypatch):
+    """A host read planted in the iteration under capture makes render_image raise, naming
+    the part being captured; the eager loop does not take over."""
+    from tpupt_torch.render import integrator
+
+    step = integrator.StreamStages.step
+
+    def planted(self, i):
+        if torch.cuda.is_current_stream_capturing():
+            int(self.rays)  # a host read: illegal while the stream is captured
+        step(self, i)
+
+    monkeypatch.setattr(integrator.StreamStages, "step", planted)
+    compiled, cam = _graph_scene("K1", cuda)
+    with pytest.raises(RuntimeError, match="capturing the iteration of stage 0"):
+        render_image(compiled, cam, progress=False)
+    monkeypatch.setattr(integrator.StreamStages, "step", step)
+    _, mean, st = render_image(compiled, cam, progress=False)  # the card still works
+    assert st.iterations > 0 and np.isfinite(mean).mean() > 0.99
+
+
+def test_tables_are_never_built_under_capture(cuda):
+    """K1's tables and K4's wide tree raise when first made under capture."""
+    compiled, _ = _graph_scene("K4", cuda)
+    sd = compiled.data
+    o = torch.zeros((32, 3), device=cuda)
+    d = torch.zeros((32, 3), device=cuda)
+    d[:, 2] = 1.0
+    stream = torch.cuda.Stream()
+    for what, fn in (("tables", lambda: hit_kernel.tables(sd)),
+                     ("wide tree", lambda: bvh_kernel.closest_tri_bvh(o, d, torch.ones(32, device=cuda), 1e-3,
+                                                                    *bvh_kernel.scene_nodes(sd)))):
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.stream(stream):
+            g.capture_begin()
+            try:
+                with pytest.raises(RuntimeError, match="under CUDA graph capture"):
+                    fn()
+            finally:
+                g.capture_end()
+
+
+@pytest.mark.parametrize("n", [0, 7, 100_003, 360_000])
+def test_stage_cond_kernel_bit_equal_to_plain(cuda, n):
+    """K5 against its plain version: the lanes with work, the decision on either side of
+    the threshold, the counter bumped once."""
+    from tpupt_torch.ops import loop_cond
+
+    rng = np.random.default_rng(n)
+    alive = torch.from_numpy(rng.uniform(size=n) < 0.3).to(cuda)
+    sample = torch.from_numpy(rng.integers(0, 10, n).astype(np.int32)).to(cuda)
+    sample0 = torch.from_numpy(rng.integers(0, 40, n).astype(np.int32)).to(cuda)
+    n_work = int(loop_cond.stage_cond_plain(alive, sample, sample0, 8, 32, 0)[0])
+    for thr in sorted({0, n_work, max(n_work - 1, 0), n // 2}):
+        it = torch.zeros(1, dtype=torch.int64, device=cuda)
+        out = loop_cond.stage_cond(alive, sample, sample0, 8, 32, thr, it, bump=True)
+        assert out.tolist() == loop_cond.stage_cond_plain(alive, sample, sample0, 8, 32, thr).tolist()
+        assert int(it) == 1

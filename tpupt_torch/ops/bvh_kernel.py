@@ -6,7 +6,8 @@ kernel; see the kernel source for the contract, the bound and the design). The
 plain version is ``ops/bvh.py::bvh_closest_tri_plain``, the reference's stackless
 walk of the binary tree. ``closest_tri_bvh`` launches the kernel for CUDA tensors
 and runs the plain version for CPU tensors, with no fallback from one to the
-other; ``launches`` counts kernel launches.
+other; ``launches`` counts kernel launches, ``captured`` the calls made under CUDA graph
+capture (render/graph.py turns them into launches as the graph runs them).
 
 The kernel walks a 4-wide collapse of the binary tree (``pack_wide``) with a short
 stack, and gives the binary walk's answers bit for bit: every node's box is the
@@ -37,6 +38,7 @@ from .bvh import LEAF_SIZE, bvh_closest_tri_plain
 from .tri_kernel import HAS_UV_FLAG
 
 launches = 0  # kernel launches since the last reset (plain-version calls not counted)
+captured = 0  # calls recorded into a CUDA graph under capture since render/graph.py's last reset
 
 WIDTH = 4  # children a wide node
 STACK = 64  # entries of the kernel's per-thread stack (csrc/bvh_kernel.cu)
@@ -148,6 +150,9 @@ def _packed(nodes, tris, attr):
     key = tuple(x._version for x in tables)
     cached = getattr(nodes[0], "_bvh_packed", None)
     if cached is None or cached[0] != key or any(a is not b for a, b in zip(cached[1], tables[1:])):
+        if nodes[0].is_cuda and torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("closest_tri_bvh: the wide tree would be packed under CUDA graph capture (the "
+                               "packing reads the host); pack it before the capture")
         wide, deepest = pack_wide(nodes)
         if deepest > STACK:
             raise ValueError(f"closest_tri_bvh: the tree needs a stack of {deepest} entries, the kernel "
@@ -234,7 +239,7 @@ _counters: dict[tuple, torch.Tensor] = {}  # the kernel's packet counter of each
 
 
 def _launch(o, d, t_in, tmin, nodes, tris, attr, count=False):
-    global launches
+    global launches, captured
     from .. import build
 
     if count not in _entry:
@@ -255,9 +260,14 @@ def _launch(o, d, t_in, tmin, nodes, tris, attr, count=False):
         return t, idx, dict(ns_raw=ns, u=u, v=v, mat=mat), per_ray  # nothing to launch, nothing counted
     with torch.cuda.device(o.device):
         stream = torch.cuda.current_stream().cuda_stream
-        # Launches on one stream run in turn, so they share a counter; each zeroes it first.
+        # Launches on one stream run in turn, so they share a counter; each zeroes it first
+        # (a memset node when captured).
+        capturing = torch.cuda.is_current_stream_capturing()
         counter = _counters.get((o.device.index, stream))
         if counter is None:
+            if capturing:
+                raise RuntimeError("closest_tri_bvh: no packet counter for the capture stream; launch once "
+                                   "on it before the capture")
             counter = _counters[(o.device.index, stream)] = torch.empty(1, **i32)
         err = _entry[count](
             o.data_ptr(), d.data_ptr(), t_in.data_ptr(), float(tmin), wide.data_ptr(), wide.shape[0],
@@ -266,5 +276,8 @@ def _launch(o, d, t_in, tmin, nodes, tris, attr, count=False):
         )
     if err != 0:
         raise RuntimeError(f"closest_tri_bvh: CUDA launch failed with error {err}")
-    launches += 1
+    if capturing:
+        captured += 1
+    else:
+        launches += 1
     return t, idx, dict(ns_raw=ns, u=u, v=v, mat=mat), per_ray

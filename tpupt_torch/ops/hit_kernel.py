@@ -4,7 +4,10 @@ and its plain PyTorch version.
 Replaces ``tpupt/ops/pallas_hit.py::_hit_kernel`` (see the kernel source for the
 contract, its bound and its design). ``closest_sphere_quad`` launches the kernel
 for CUDA tensors and runs the plain version for CPU tensors; there is no fallback
-from one to the other. ``launches`` counts kernel launches.
+from one to the other. ``launches`` counts kernel launches; a call under CUDA graph
+capture launches nothing and counts in ``captured`` (render/graph.py turns the
+captured calls into launches as the graph runs them). The tables are never made
+under capture: that raises.
 
 Callers hand over the tables in the reference's layout (``tables``: sph [7,S],
 quad [16,Q], padded at the tail). The kernel reads them packed primitive-major and
@@ -49,6 +52,7 @@ CULL_DIR = 1.0e-5
 CULL_ORIGIN = 1.0e30  # |o|_1 of a ray that may cull: keeps the box test finite
 
 launches = 0  # kernel launches since the last reset (plain-version calls not counted)
+captured = 0  # calls recorded into a CUDA graph under capture since render/graph.py's last reset
 
 
 _TABLE_FIELDS = ("sph_c1", "sph_c2", "sph_r", "quad_n", "quad_q", "quad_u", "quad_v", "quad_w", "quad_d")
@@ -64,6 +68,7 @@ def tables(sd):
     versions = tuple(t._version for t in src)
     cached = getattr(sd, "_hit_tables", None)
     if cached is None or any(a is not b for a, b in zip(cached[0], src)) or cached[1] != versions:
+        _not_under_capture("the scene's tables")
         sph = torch.cat([sd.sph_c1.T, sd.sph_c2.T, sd.sph_r[None, :]], dim=0).contiguous()
         quad = torch.cat(
             [sd.quad_n.T, sd.quad_q.T, sd.quad_u.T, sd.quad_v.T, sd.quad_w.T, sd.quad_d[None, :]],
@@ -139,11 +144,18 @@ def _packed(sph, quad):
     place packs anew."""
     cached = getattr(sph, "_hit_packed", None)
     if cached is None or cached[0] is not quad or cached[1] != (sph._version, quad._version):
+        _not_under_capture("the packed tables")
         sph_packed, quad_packed = pack_tables(sph, quad)
         boxes = sphere_tile_boxes(sph[:, : sph_packed.shape[0]])
         cached = (quad, (sph._version, quad._version), (sph_packed, quad_packed, boxes))
         sph._hit_packed = cached
     return cached[2]
+
+
+def _not_under_capture(what):
+    if torch.cuda.is_available() and torch.cuda.is_current_stream_capturing():
+        raise RuntimeError(f"closest_sphere_quad: {what} would be made under CUDA graph capture (their "
+                           "build reads the host); make them before the capture")
 
 
 def _check(o, d, time, sph, quad):
@@ -190,7 +202,7 @@ def closest_sphere_quad(o, d, time, sph, quad, tmin=1e-3):
 
 
 def _launch(o, d, time, sph, quad, tmin):
-    global launches
+    global launches, captured
     from .. import build
 
     lib = build.load("hit_kernel")
@@ -218,7 +230,10 @@ def _launch(o, d, time, sph, quad, tmin):
     )
     if err != 0:
         raise RuntimeError(f"closest_sphere_quad: CUDA launch failed with error {err}")
-    launches += 1
+    if torch.cuda.is_current_stream_capturing():
+        captured += 1
+    else:
+        launches += 1
     return t, kind, idx
 
 

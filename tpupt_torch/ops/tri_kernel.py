@@ -12,7 +12,9 @@ the design.
 ``closest_tri`` routes by the scene compiler's flags; ``closest_tri_flat`` and
 ``closest_tri_two_level`` launch their kernel for CUDA tensors and run the plain
 version for CPU tensors, with no fallback from one to the other. ``launches``
-counts kernel launches per kernel.
+counts kernel launches per kernel; a call under CUDA graph capture launches nothing
+and counts in ``captured`` (render/graph.py turns the captured calls into launches as
+the graph runs them).
 
 Packed layout (per cluster of up to 64 triangles, contiguous in SAH order):
   tri_cl   [Cp, 8]       cluster AABB: min xyz, max xyz, 0, 0 (pad rows at +1e30)
@@ -52,6 +54,7 @@ PAD_BOX = 1e30  # every coordinate of a pad box
 PLAIN_ELEMS = 1 << 22  # elements per [rays, boxes] or [pairs, 64] step of the plain versions
 
 launches = {"flat": 0, "two_level": 0}  # kernel launches (plain-version calls not counted)
+captured = {"flat": 0, "two_level": 0}  # calls recorded into a CUDA graph under capture
 
 
 # ---------------------------------------------------------------------------
@@ -251,9 +254,14 @@ def _launch(which, o, d, t_in, tmin, scl, cl, geo, attr, sc_size):
         tables = [cl.shape[0] // sc_size, sc_size, cl.data_ptr(), cl.shape[0]]
     with torch.cuda.device(o.device):
         stream = torch.cuda.current_stream().cuda_stream
-        # Launches on one stream run in turn, so they share a counter; each zeroes it first.
+        # Launches on one stream run in turn, so they share a counter; each zeroes it first
+        # (a memset node when captured).
+        capturing = torch.cuda.is_current_stream_capturing()
         counter = _counters.get((o.device.index, stream))
         if counter is None:
+            if capturing:
+                raise RuntimeError(f"closest_tri_{which}: no packet counter for the capture stream; launch "
+                                   "once on it before the capture")
             counter = _counters[(o.device.index, stream)] = torch.empty(1, **i32)
         err = _entry[which](
             o.data_ptr(), d.data_ptr(), t_in.data_ptr(), float(tmin), scl.data_ptr(), *tables,
@@ -262,7 +270,7 @@ def _launch(which, o, d, t_in, tmin, scl, cl, geo, attr, sc_size):
         )
     if err != 0:
         raise RuntimeError(f"closest_tri_{which}: CUDA launch failed with error {err}")
-    launches[which] += 1
+    (captured if capturing else launches)[which] += 1
     return t, idx, dict(ns_raw=ns, u=u, v=v, mat=mat)
 
 

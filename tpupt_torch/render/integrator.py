@@ -14,9 +14,13 @@ Reproduces the estimator of Camera::trace (camera.rs:170-228):
       next origin = hit + 1e-3 * sign(dir . ng) * ng   (camera.rs:217-222)
 
 Every lane carries an `alive` mask and the wavefront iterates until all lanes are
-done. The loop condition is read on the host, so each wavefront iteration costs
-one device-to-host sync. Division by a zero pdf is left unguarded like the
-reference (NaNs quantize to black in film.py).
+done. In ``trace_film_streamed`` (the plain version, and the CPU's route) the loop
+condition is read on the host, one device-to-host sync an iteration.
+``StreamStages`` runs the same wavefront over state at fixed addresses, updated in
+place, with its condition and counters on the device: render/graph.py captures its
+parts into the CUDA graph of a launch, in which the loop runs on the card. Division
+by a zero pdf is left unguarded like the reference (NaNs quantize to black in
+film.py).
 
 p_light is 0.5 iff the scene has lights (camera.rs:199); without lights the
 light-sampling branch is skipped entirely. With an HDR environment the
@@ -37,6 +41,7 @@ from ..ops import lights as light_ops
 from ..ops.bsdf import bsdf_eval, bsdf_pdf, bsdf_sample, make_shade
 from ..ops.envmap import sample_environment
 from ..ops.intersect import closest_hit
+from ..ops import loop_cond
 from ..scene import data as D
 from .camera import generate_rays
 
@@ -206,7 +211,7 @@ def compaction_thresholds(b: int, clusters: bool = False) -> list[int]:
 
 
 def trace_film_streamed(
-    sd, cam, pixel_ids, rows, cols, sample0, spp_limit, seed, k, max_depth, has_lights
+    sd, cam, pixel_ids, rows, cols, sample0, spp_limit, seed, k, max_depth, has_lights, log=None
 ):
     """Path-regeneration wavefront: each lane streams up to k samples of its pixel.
 
@@ -220,7 +225,8 @@ def trace_film_streamed(
       exactly (lane ids are unique, so index_add_ is deterministic).
 
     sample0 is a per-lane tensor. Returns (film_sum [B,3] in the caller's lane
-    order, rays_traced int, wavefront iterations int).
+    order, rays_traced int, wavefront iterations int). log (a list), if given, gets
+    (stage, lanes with work) at every host read.
     """
     b = pixel_ids.shape[0]
     dev = pixel_ids.device
@@ -234,9 +240,11 @@ def trace_film_streamed(
 
     bank = torch.zeros((b, 3), **f32)
     iterations = 0
-    for thr in compaction_thresholds(b, sd.has_tri_clusters or sd.has_tri_clusters_hbm):
+    for stage, thr in enumerate(compaction_thresholds(b, sd.has_tri_clusters or sd.has_tri_clusters_hbm)):
         while True:
             n_work = int(work_mask(s).sum())  # the one host sync of the iteration
+            if log is not None:
+                log.append((stage, n_work))
             if n_work == 0 or n_work <= thr:
                 break
             s, n_rays = _stream_step(
@@ -279,6 +287,113 @@ def stream_state(pixel_ids, rows, cols, sample0) -> dict:
         film=torch.zeros((b, 3), **f32),
         alive=torch.zeros(b, dtype=torch.bool, device=dev),
     )
+
+
+# the state an iteration writes (the rest of a stage's state is fixed between compactions)
+STEP_KEYS = ("o", "d", "time", "bounce", "sample", "cur_sample", "throughput", "radiance", "film", "alive")
+
+
+class StreamStages:
+    """trace_film_streamed over static state: each stage's state at fixed addresses.
+
+    Stage i runs on state of n_i lanes (n_0 = B, then each compaction threshold), held in
+    tensors made once and updated in place, so that every part of a launch is a fixed
+    sequence of device work on fixed shapes and addresses, which render/graph.py captures:
+
+    - ``reset()``: stage 0 to the state before the first iteration (pixels, rows, cols
+      and first samples are the launch's inputs, written by ``set_inputs``); the film
+      bank and the counters to zero;
+    - ``step(i)``: one iteration of stage i (``_stream_step``, then ``copy_`` back into
+      the state), its ray count added to ``rays`` on the device;
+    - ``cond(i, bump)``: the stage's condition on the device, the lanes with work > its
+      threshold (``ops/loop_cond.py``); bump adds the iteration just run to ``iters[i]``;
+    - ``compact(i)``: the live lanes work-first into stage i+1's state, stage i's films
+      into the bank;
+    - ``finish()``: the last stage's films into the bank.
+
+    ``run()`` drives them from the host, one read of the condition an iteration: the
+    stage runner on the CPU, which the tests hold bit-equal to trace_film_streamed.
+    """
+
+    def __init__(self, sd, cam, b, spp_limit, seed, k, max_depth, has_lights, device):
+        self.sd, self.cam = sd, cam
+        self.spp_limit, self.seed, self.k, self.max_depth, self.has_lights = spp_limit, seed, k, max_depth, has_lights
+        self.p_light, self.p_bsdf = _mis_probs(has_lights)
+        self.thresholds = compaction_thresholds(b, sd.has_tri_clusters or sd.has_tri_clusters_hbm)
+        sizes = [b] + self.thresholds[:-1]
+        i32 = dict(dtype=torch.int32, device=device)
+        proto = stream_state(torch.zeros(1, **i32), torch.zeros(1, **i32), torch.zeros(1, **i32),
+                             torch.zeros(1, **i32))
+        self.states = [{key: torch.empty((n, *v.shape[1:]), dtype=v.dtype, device=device)
+                        for key, v in proto.items()} for n in sizes]
+        self.bank = torch.zeros((b, 3), dtype=REAL, device=device)
+        self.rays = torch.zeros(1, dtype=torch.int64, device=device)
+        self.iters = torch.zeros(len(sizes), dtype=torch.int64, device=device)
+
+    def set_inputs(self, pixel_ids, rows, cols, sample0):
+        s = self.states[0]
+        for key, val in (("pix", pixel_ids), ("row", rows), ("col", cols), ("sample0", sample0)):
+            s[key].copy_(val)
+
+    def reset(self):
+        s = self.states[0]
+        torch.arange(s["lane"].shape[0], out=s["lane"])
+        for key in ("o", "d", "time", "bounce", "sample", "cur_sample", "radiance", "film"):
+            s[key].zero_()
+        s["d"][:, 2] = 1.0
+        s["throughput"].fill_(1.0)
+        s["alive"].zero_()
+        self.bank.zero_()
+        self.rays.zero_()
+        self.iters.zero_()
+
+    def step(self, i):
+        s = self.states[i]
+        out, n_rays = _stream_step(s, self.sd, self.cam, self.spp_limit, self.seed, self.k, self.max_depth,
+                                   self.has_lights, self.p_light, self.p_bsdf)
+        for key in STEP_KEYS:
+            s[key].copy_(out[key])
+        self.rays.add_(n_rays)
+
+    def cond(self, i, bump=False):
+        s = self.states[i]
+        return loop_cond.stage_cond(s["alive"], s["sample"], s["sample0"], self.k, self.spp_limit,
+                                    self.thresholds[i], self.iters[i : i + 1], bump)
+
+    def compact(self, i):
+        s, t = self.states[i], self.states[i + 1]
+        work = loop_cond.work_mask(s["alive"], s["sample"], s["sample0"], self.k, self.spp_limit)
+        keep = torch.argsort((~work).to(torch.int8), stable=True)[: self.thresholds[i]]
+        self.bank.index_add_(0, s["lane"], s["film"])
+        for key, val in s.items():
+            if key != "film":
+                torch.index_select(val, 0, keep, out=t[key])
+        t["film"].zero_()
+
+    def finish(self):
+        last = self.states[-1]
+        self.bank.index_add_(0, last["lane"], last["film"])
+
+    def run(self, log=None):
+        """The whole launch driven from the host -> (bank [B,3], rays int, iterations int).
+        log (a list), if given, gets (stage, lanes with work, go, iterations so far) at
+        every read of the condition."""
+        self.reset()
+        for i in range(len(self.states)):
+            bump = False
+            while True:
+                out = self.cond(i, bump)
+                n_work, go = out.tolist()  # the one host read of the iteration
+                if log is not None:
+                    log.append((i, n_work, go, int(self.iters.sum())))
+                if not go:
+                    break
+                self.step(i)
+                bump = True
+            if i + 1 < len(self.states):
+                self.compact(i)
+        self.finish()
+        return self.bank, int(self.rays), int(self.iters.sum())
 
 
 def _stream_step(s, sd, cam, spp_limit, seed, k, max_depth, has_lights, p_light, p_bsdf,

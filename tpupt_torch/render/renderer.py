@@ -2,10 +2,14 @@
 
 Counterpart of ``tpupt/render/renderer.py``. The (pixel, sample) space is flattened
 into lanes of fixed-size launches; each launch runs the path-regeneration wavefront
-(integrator.trace_film_streamed) and its film is accumulated on the host in float64.
-Runs on the compiled scene's device; with a mesh (parallel/sharding.py), each
-process traces its own sample slice of every launch on its device and the film is
-all-reduced once a launch.
+and its film is accumulated on the host in float64. On a CUDA device a launch is one
+device program, as the reference's jitted launch is: CUDA graphs whose wavefront
+loops run on the card (render/graph.py), captured at a call's first launch and
+replayed by the others. The CPU runs the eager loop (integrator.trace_film_streamed),
+which is also the graphs' plain version (``plain_launches``). Runs on the compiled
+scene's device; with a mesh (parallel/sharding.py), each process traces its own
+sample slice of every launch on its device and the film is all-reduced once a launch,
+outside the graphs.
 """
 
 from __future__ import annotations
@@ -23,6 +27,7 @@ from ..scene.compile import CompiledScene
 from .camera import Camera
 from .film import tonemap_quantize
 from ..parallel.sharding import Mesh, all_reduce_film
+from .graph import LaunchGraphs
 from .integrator import trace_film_streamed
 
 
@@ -32,8 +37,11 @@ class RenderStats:
     paths: int = 0
     rays: int = 0  # scene intersections of live lanes (every bounce counts)
     launches: int = 0
-    # wavefront iterations (each costs one host sync); under a mesh, this rank's own
+    # wavefront iterations (on the CPU each costs one host sync; on CUDA they run on the
+    # card, counted there); under a mesh, this rank's own
     iterations: int = 0
+    # host seconds spent capturing and instantiating the launch's graphs (CUDA; part of wall_s)
+    capture_s: float = 0.0
 
     @property
     def paths_per_s(self) -> float:
@@ -56,6 +64,21 @@ class TransientLaunchError(RuntimeError):
 # every launch attempt; raising TransientLaunchError from it simulates a
 # transient launch failure.
 _fault_hook = None
+
+_plain = False  # CUDA launches run the eager loop (plain_launches)
+
+
+@contextlib.contextmanager
+def plain_launches():
+    """Within the block, CUDA launches run the eager loop (trace_film_streamed, one host
+    sync an iteration) instead of the graphs: the plain version that the tests and
+    chip_smoke.py hold the graphs against, film bit for bit."""
+    global _plain
+    before, _plain = _plain, True
+    try:
+        yield
+    finally:
+        _plain = before
 
 
 def _morton_pixel_order(w: int, h: int) -> np.ndarray:
@@ -82,24 +105,38 @@ def _morton_pixel_order(w: int, h: int) -> np.ndarray:
     return np.argsort(code, kind="stable").astype(np.int32)
 
 
+def lane_first_samples(pb, n_valid, r, k, sample0, spp_limit) -> np.ndarray:
+    """Each lane's first sample id [r*pb] int32, on the host: lane j*pb + i takes pixel i's
+    samples from sample0 + j*k; lanes past n_valid (padding) start at spp_limit."""
+    first = sample0 + np.repeat(np.arange(r, dtype=np.int64) * k, pb)
+    return np.where(np.tile(np.arange(pb) < n_valid, r), first, spp_limit).astype(np.int32)
+
+
 def _chunk_film(sd, cam, pixel_ids, n_valid, sample0, spp_limit, seed, *, k, r, max_depth,
-                has_lights, width):
+                has_lights, width, graphs=None):
     """Film sums of up to r*k samples per pixel in `pixel_ids` -> ([pb,3], rays, iterations).
 
     r lanes per pixel, each streaming its own k-sample slice (replica j takes
     samples [sample0 + j*k, ...)). Lanes past n_valid (padding of the final pixel
-    block) start at spp_limit, so they never start a path.
+    block) start at spp_limit, so they never start a path. On CUDA the launch runs as
+    graphs: those of `graphs` (a LaunchGraphs), else graphs made for this launch alone;
+    the film is then a buffer of the graphs, valid until their next launch.
     """
     pb = pixel_ids.shape[0]
     dev = pixel_ids.device
     pix = pixel_ids.repeat(r)
     rows = pix // width
     cols = pix % width
-    lane_sample0 = sample0 + torch.repeat_interleave(
-        torch.arange(r, dtype=torch.int32, device=dev) * k, pb
-    )
-    lane_valid = (torch.arange(pb, dtype=torch.int32, device=dev) < n_valid).repeat(r)
-    lane_sample0 = torch.where(lane_valid, lane_sample0, spp_limit).to(torch.int32)
+    lane_sample0 = lane_first_samples(pb, n_valid, r, k, sample0, spp_limit)
+    n_work0 = int((lane_sample0 < spp_limit).sum())  # lanes with a first sample to take
+    lane_sample0 = torch.from_numpy(lane_sample0).to(dev)
+    if dev.type == "cuda" and not _plain:
+        args = (sd, cam, pix, rows, cols, lane_sample0, n_work0)
+        kw = dict(spp_limit=spp_limit, seed=seed, k=k, r=r, max_depth=max_depth, has_lights=has_lights)
+        if graphs is not None:
+            return graphs.run(*args, **kw)
+        with LaunchGraphs() as own:
+            return own.run(*args, **kw)
     film, rays, iters = trace_film_streamed(
         sd, cam, pix, rows, cols, lane_sample0, spp_limit, seed, k, max_depth, has_lights
     )
@@ -121,7 +158,11 @@ def render_image(
 ):
     """Render -> (uint8 image [H,W,3], float32 mean radiance [H,W,3], RenderStats).
 
-    Runs on the device the scene was compiled for (``Scene.compile(device=...)``).
+    Runs on the device the scene was compiled for (``Scene.compile(device=...)``). On a
+    CUDA device each launch runs as CUDA graphs whose wavefront loops run on the card
+    (render/graph.py): captured at the call's first launch of a shape (stats.capture_s)
+    and replayed by the others, one host read a launch; a failure to capture or launch
+    them raises. The CPU runs the eager loop.
 
     rays_per_launch bounds the lane count (pixel block size) of a launch;
     samples_per_launch bounds how many samples each lane streams per launch.
@@ -204,8 +245,9 @@ def render_image(
     # this rank's first sample of a launch, after the launch's first sample
     dev_sample0 = 0 if mesh is None else mesh.index * r * k
     order = _morton_pixel_order(w, h)
+    graphs = LaunchGraphs() if dev.type == "cuda" and not _plain else None
     t0 = _time.perf_counter()
-    with prof:
+    with prof, graphs if graphs is not None else contextlib.nullcontext():
         for it in range(start_it, total_launches):
             pblk, schunk = divmod(it, n_sample_chunks)
             lo = pblk * pb
@@ -220,7 +262,7 @@ def render_image(
                     out, rays, iters = _chunk_film(
                         sd, cam, torch.from_numpy(ids).to(dev), n_valid, schunk * spl + dev_sample0,
                         spp, seed, k=k, r=r, max_depth=camera.max_depth,
-                        has_lights=compiled.has_lights, width=w,
+                        has_lights=compiled.has_lights, width=w, graphs=graphs,
                     )
                     break
                 except TransientLaunchError:
@@ -268,6 +310,7 @@ def render_image(
                 print(f"  pixel block {pblk + 1}/{n_pixel_blocks} done", flush=True)
 
     stats.wall_s = _time.perf_counter() - t0
+    stats.capture_s = graphs.capture_s if graphs is not None else 0.0
     if profile_dir is not None:
         os.makedirs(profile_dir, exist_ok=True)
         prof.export_chrome_trace(os.path.join(profile_dir, f"render_rank{0 if mesh is None else mesh.index}.json"))
