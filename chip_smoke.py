@@ -31,12 +31,20 @@ version: the two films must be bit-equal, with equal rays and iterations (the st
 renders of scenes 2, 5 and 7; their twins are held to those). Both routes' wall time,
 paths/s, iterations, ms an iteration, peak memory and the graphs' capture time go into a
 "routes" JSON line; --profile adds each route's device busy share (a "profiles" line).
-And the gradient path (render_film_grads: the detached estimator, each trip
-checkpointed and replayed in the backward pass) of the Cornell box at bench.py's
+And the gradient path (render_film_grads: the detached estimator, each trip's carry
+saved and the trip replayed in the backward pass) of the Cornell box at bench.py's
 `grads` configuration (128x128, 32 spp, 4 lanes a pixel) and at 600x600 (4 spp),
-K1 launching in every forward trip and again in its replay; the card's gradients
-are held against the CPU's on a small box scene, on a small mesh (K2, and K4 with
-bvh=True) and on 60000 random triangles (K3).
+K1 launching in every forward trip and again in its replay. On the card the pass runs
+as CUDA graphs (render/graph.py GradGraphs: the forward trips and the replays each a
+conditional WHILE node, the segment gate and the countdown K5's gradient modes, one host
+read a chunk of trips and one more), first capturing, then replaying with the graphs
+kept on the compiled scene; and again by the eager route (plain_grads), its plain
+version: films bit-equal, gradients within relative L1 1e-6, trips, forward and backward
+ms a trip, capture s, host reads, chunks and peak memory of both routes printed; with
+--profile, each route's busy share (the eager route's device time over each route's
+wall). The card's gradients are held against the CPU's, and the graphs against the eager
+route, on a small box scene, an HDR-map scene (principled, metal), a small mesh (K2, and
+K4 with bvh=True) and 60000 random triangles (K3).
 Then the sharded phases (parallel/, one process a device): render_image(mesh=...) of
 the Cornell box in a world of 1 over NCCL, bit-equal to the render without a mesh;
 two gloo ranks spawned on the one card (NCCL puts no two ranks of a communicator on
@@ -127,6 +135,9 @@ HDR_ENV_WH = (1024, 512)  # the environment-map scene's stand-in sky
 # gradients: bench.py's `grads` configuration, and the full width at fewer samples
 GRADS = {"grads": dict(width=128, spp=32, replicas=4), "grads 600": dict(width=600, spp=4, replicas=None)}
 GRAD_REL_L1 = 2e-2  # card against CPU gradients, per field (tests/test_torch_cuda.py)
+# the graph route's gradients against the eager route's on the card, per field: a trip's
+# gradient is summed before it joins the total, and the gathers' backward adds with atomics
+GRAPH_REL_L1 = 1e-6
 
 
 T0 = time.perf_counter()
@@ -544,6 +555,72 @@ def check_stage_cond(dev):
     return bad, err, (ms, plain_ms, bound_ms, bound_by)
 
 
+def check_grad_conds(dev):
+    """K5's gradient modes against their plain versions on the card: the gate at the lane
+    counts of the `grads` and `grads 600` passes (65536, 360000) at every trip of two chunks
+    with segments of 1, 3 and 8, lanes with work and without; the countdown down a chunk.
+    Then their times at 65536 lanes -> ({mode: mismatches}, {mode: max |error|}, {mode: (ms,
+    plain_ms, bound_ms, bound_by)}), mode "gate" or "countdown"."""
+    from tpupt_torch.ops import loop_cond
+
+    rng = np.random.default_rng(41)
+    k, spp, depth = 8, 32, 50
+    bad, err, cases = {"gate": 0, "countdown": 0}, {"gate": 0.0, "countdown": 0.0}, 0
+    for n in (65536, 360000):
+        sample0 = torch.from_numpy(rng.integers(0, spp, n).astype(np.int32)).to(dev)
+        for segment in (1, 3, 8):
+            cap = -(-(k * depth) // segment) * segment
+            for p_alive, s in ((0.2, 1), (0.0, k)):
+                alive = torch.from_numpy(rng.uniform(size=n) < p_alive).to(dev)
+                sample = torch.full((n,), s, dtype=torch.int32, device=dev)
+                for c0 in (0, cap - 2 * segment):
+                    chunk = torch.tensor([c0, c0 + 2 * segment], device=dev)
+                    for t in range(c0, c0 + 2 * segment + 1):
+                        for bump in (False, True):
+                            trips = torch.tensor([t - bump], device=dev)
+                            trips_ref = trips.clone()
+                            out = loop_cond.grad_gate(alive, sample, sample0, k, spp, segment, cap, trips, chunk,
+                                                      bump)
+                            ref = loop_cond.grad_gate_plain(alive, sample, sample0, k, spp, segment, cap,
+                                                            trips_ref, chunk, bump)
+                            e = float((out - ref).abs().max()) + abs(int(trips) - int(trips_ref))
+                            bad["gate"] += int(e != 0)
+                            err["gate"] = max(err["gate"], e)
+                            cases += 1
+    chunk = torch.tensor([40, 48], device=dev)
+    index, replays = torch.tensor([47], device=dev), torch.zeros(1, dtype=torch.int64, device=dev)
+    index_ref, replays_ref = index.clone(), replays.clone()
+    for bump in [False] + [True] * 9:
+        out = loop_cond.grad_countdown(index, chunk, replays, bump)
+        ref = loop_cond.grad_countdown_plain(index_ref, chunk, replays_ref, bump)
+        e = float((out - ref).abs().max()) + abs(int(index) - int(index_ref)) + abs(int(replays) - int(replays_ref))
+        bad["countdown"] += int(e != 0)
+        err["countdown"] = max(err["countdown"], e)
+        cases += 1
+    n = 65536
+    alive = torch.from_numpy(rng.uniform(size=n) < 0.5).to(dev)
+    sample = torch.from_numpy(rng.integers(0, k + 2, n).astype(np.int32)).to(dev)
+    sample0 = torch.from_numpy(rng.integers(0, spp, n).astype(np.int32)).to(dev)
+    trips, chunk = torch.tensor([8], device=dev), torch.tensor([0, 64], device=dev)
+    out = torch.empty(2, dtype=torch.int64, device=dev)
+    scratch = torch.zeros(2, dtype=torch.int32, device=dev)
+    timing = {}
+    ms = cuda_ms(lambda: loop_cond.grad_gate(alive, sample, sample0, k, spp, 8, 400, trips, chunk, out=out,
+                                             scratch=scratch))
+    plain_ms = cuda_ms(lambda: loop_cond.grad_gate_plain(alive, sample, sample0, k, spp, 8, 400, trips, chunk))
+    nbytes = n * (1 + 4 + 4) + 8 + 16 + 16  # the lanes, the trip counter, the chunk in; the count, go out
+    timing["gate"] = (ms, plain_ms, *bound(0, nbytes))
+    ms = cuda_ms(lambda: loop_cond.grad_countdown(index, chunk, replays, out=out))
+    plain_ms = cuda_ms(lambda: loop_cond.grad_countdown_plain(index, chunk, replays))
+    timing["countdown"] = (ms, plain_ms, *bound(0, 8 + 16 + 8 + 16))  # index, chunk, replays in; index, go out
+    log(f"K5 grad_gate / grad_countdown: {cases} cases at 65536 and 360000 lanes, mismatches {bad}, max |error| "
+        f"{err}; at B={n}: gate kernel {timing['gate'][0]:.4f} ms, plain {timing['gate'][1]:.4f} ms, bound "
+        f"{timing['gate'][2]:.6f} ms (bytes: {nbytes} B); countdown kernel {timing['countdown'][0]:.4f} ms, plain "
+        f"{timing['countdown'][1]:.4f} ms, bound {timing['countdown'][2]:.2e} ms (bytes: 48 B); integer work only, "
+        f"no single PyTorch call computes either")
+    return bad, err, timing
+
+
 def masked_rays(rays):
     """A batch with t_in = 0 on every other lane (dead) and NaN in the origin or the
     direction of one lane in 61."""
@@ -784,14 +861,15 @@ def zero_counts():
     hit_kernel.launches = 0
     tri_kernel.launches.update(flat=0, two_level=0)
     bvh_kernel.launches = 0
-    loop_cond.launches = 0
+    loop_cond.launches = loop_cond.gate_launches = loop_cond.countdown_launches = 0
 
 
 def read_counts():
     from tpupt_torch.ops import bvh_kernel, hit_kernel, loop_cond, tri_kernel
 
     return {"K1": hit_kernel.launches, "K2": tri_kernel.launches["flat"],
-            "K3": tri_kernel.launches["two_level"], "K4": bvh_kernel.launches, "K5": loop_cond.launches}
+            "K3": tri_kernel.launches["two_level"], "K4": bvh_kernel.launches, "K5": loop_cond.launches,
+            "K5 gate": loop_cond.gate_launches, "K5 countdown": loop_cond.countdown_launches}
 
 
 def grad_box_scene(width, spp):
@@ -812,81 +890,166 @@ def grad_box_scene(width, spp):
     return s, cam
 
 
-def grads_run(label, compiled, cam, spp, replicas, reps, warm_up):
-    """render_film_grads: warm-up, then `reps` timed runs, each with the counts zeroed just
-    before and read just after -> the last run's numbers."""
-    from tpupt_torch.render.diff import DIFF_FIELDS, render_film_grads
+def grad_hdr_scene(width, spp):
+    """tests/test_torch_grad_ref.py's HDR case: a principled sphere on a rough metal floor
+    under a quad light and a seeded 16x8 HDR map (every material family's eval, both light
+    members, the env_img gradient), max_depth 12."""
+    from tpupt_torch.render.camera import Camera
+    from tpupt_torch.scene.builder import ImageTexture, Light, Metal, Principled, Scene
 
-    if warm_up:
-        render_film_grads(compiled, cam, spp=spp, seed=0, replicas=replicas)
+    img = np.random.default_rng(0).uniform(0.05, 3.0, size=(8, 16, 3)).astype(np.float32)
+    img[2, 5] = 60.0
+    s = Scene()
+    s.add_quad((-4.0, 0.0, -4.0), (8.0, 0.0, 0.0), (0.0, 0.0, 8.0), Metal((0.8, 0.7, 0.6), 0.3))
+    s.add_sphere(0.7, (0.0, 0.7, 0.0), Principled((0.6, 0.5, 0.4), metallic=0.2, roughness=0.5, clearcoat=0.5,
+                                                  sheen=0.3))
+    s.add_quad((-1.0, 3.0, -1.0), (2.0, 0.0, 0.0), (0.0, 0.0, 2.0), Light((6.0, 5.0, 4.0)), light=True)
+    s.environment = ImageTexture(img, hdr=True)
+    cam = Camera(aspect_ratio=1.0, image_width=width, samples_per_pixel=spp, max_depth=12, vfov=40.0,
+                 look_from=(0.0, 1.0, 3.0), look_at=(0.0, 1.0, 0.0), blur_strength=0.5,
+                 focal_length=3.0, defocus_angle=0.0)
+    return s, cam
+
+
+def grads_call(compiled, cam, spp, replicas, route, seed=0):
+    """One render_film_grads call by `route` ("graphs": the CUDA route; "eager": plain_grads),
+    the counts zeroed just before and read just after -> (mean, grads, stats, numbers)."""
+    from tpupt_torch.render.diff import plain_grads, render_film_grads
+
     torch.cuda.synchronize()
-    for rep in range(reps):
-        torch.cuda.reset_peak_memory_stats()
-        zero_counts()
-        t0 = time.perf_counter()
-        mean, grads, st = render_film_grads(compiled, cam, spp=spp, seed=0, replicas=replicas,
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t0 = time.perf_counter()
+    with plain_grads() if route == "eager" else contextlib.nullcontext():
+        mean, grads, st = render_film_grads(compiled, cam, spp=spp, seed=seed, replicas=replicas,
                                             return_stats=True)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        counts = read_counts()
-        peak = torch.cuda.max_memory_allocated() / 2**30
-        fin = float(torch.isfinite(mean).all(dim=-1).float().mean())
-        grads_finite = {k: bool(torch.isfinite(grads[k]).all()) for k in DIFF_FIELDS}
-        out = dict(
-            width=cam.image_width, height=cam.image_height, spp=spp, max_depth=cam.max_depth,
-            lanes=st.lanes, wall_s=wall, rays=st.rays, rays_per_s=st.rays / wall, trips=st.trips,
-            forward_s=st.forward_s, backward_s=st.backward_s,
-            forward_ms_per_trip=1e3 * st.forward_s / max(st.trips, 1),
-            backward_ms_per_trip=1e3 * st.backward_s / max(st.trips, 1),
-            launches_forward=st.launches_forward, launches_replay=st.launches_backward,
-            peak_gib=peak, film_finite_share=fin, grads_finite=all(grads_finite.values()),
-            grad_abs_sum={k: float(grads[k].abs().sum()) for k in DIFF_FIELDS},
-        )
-        log(f"grads [{label}] run {rep + 1}/{reps}: {cam.image_width}x{cam.image_height} {spp} spp "
-            f"max_depth {cam.max_depth}, {st.lanes} lanes: {wall:.3f} s, {st.rays} forward rays, "
-            f"{out['rays_per_s']:.4e} rays/s fwd+bwd, {st.trips} trips, forward {st.forward_s:.3f} s "
-            f"({out['forward_ms_per_trip']:.3f} ms a trip), backward {st.backward_s:.3f} s "
-            f"({out['backward_ms_per_trip']:.3f} ms a trip), K1 launches {st.launches_forward['K1']} "
-            f"forward + {st.launches_backward['K1']} in the replays, peak memory {peak:.3f} GiB, film "
-            f"finite share {fin:.6f}, gradients finite {grads_finite}")
-    if counts["K1"] == 0 or counts["K1"] != st.launches_forward["K1"] + st.launches_backward["K1"]:
-        raise SystemExit(f"chip_smoke: the {label} gradient run launched K1 {counts['K1']} times")
-    if st.launches_forward["K1"] != st.trips or st.launches_backward["K1"] != st.trips:
-        raise SystemExit(f"chip_smoke: {label}: K1 must launch once a trip forward and once in its replay")
-    if fin < 1.0 or not out["grads_finite"] or mean.shape != (cam.image_height, cam.image_width, 3):
-        raise SystemExit(f"chip_smoke: the {label} gradient run is not finite: film {fin}, {grads_finite}")
-    if not out["grad_abs_sum"]["mat_params"] > 0.0 or not out["grad_abs_sum"]["tex_rgb"] > 0.0:
-        raise SystemExit(f"chip_smoke: the {label} gradients are zero")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    out = dict(
+        wall_s=wall, rays=st.rays, rays_per_s=st.rays / wall, trips=st.trips, lanes=st.lanes,
+        forward_s=st.forward_s, backward_s=st.backward_s,
+        forward_ms_per_trip=1e3 * st.forward_s / max(st.trips, 1),
+        backward_ms_per_trip=1e3 * st.backward_s / max(st.trips, 1),
+        capture_s=st.capture_s, host_reads=st.host_reads, chunks=st.chunks,
+        peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+        launches_forward=st.launches_forward, launches_replay=st.launches_backward, counts=counts,
+    )
+    return mean, grads, st, out
+
+
+def rel_l1(got, ref):
+    """{field: sum|got - ref| / sum|ref|} (0 where both are 0, inf where only ref is)."""
+    out = {}
+    for k, r in ref.items():
+        total, err = float(r.abs().sum()), float((got[k] - r).abs().sum())
+        out[k] = err / total if total > 0 else (0.0 if err == 0 else math.inf)
     return out
 
 
+def hold_routes(label, graphs, eager):
+    """The graph route's (mean, grads, stats, numbers) against the eager route's: film bit-equal,
+    rays and trips equal, gradients within GRAPH_REL_L1, each kernel once a trip forward and
+    once in its replay, host reads = chunks + 1 -> (film bit-equal, relative L1 by field)."""
+    (m_g, g_g, st_g, n_g), (m_e, g_e, st_e, _) = graphs, eager
+    equal = bool(torch.equal(m_g.view(torch.int32), m_e.view(torch.int32)))
+    errs = rel_l1(g_g, g_e)
+    log(f"grads [{label}] graphs against the eager route: film bit-equal {equal}, rays {st_g.rays} / "
+        f"{st_e.rays}, trips {st_g.trips} / {st_e.trips}; gradients' relative L1 by field {errs} (limit "
+        f"{GRAPH_REL_L1}); host reads {st_g.host_reads} (chunks {st_g.chunks} + 1) against {st_e.host_reads}")
+    if not equal or (st_g.rays, st_g.trips) != (st_e.rays, st_e.trips):
+        diff = (m_g - m_e).abs()
+        raise SystemExit(f"chip_smoke: the {label} gradient pass's film differs between the graphs and the eager "
+                         f"route: {int((diff > 0).any(-1).sum())} pixels, rays {st_g.rays} vs {st_e.rays}, trips "
+                         f"{st_g.trips} vs {st_e.trips}")
+    if any(e > GRAPH_REL_L1 for e in errs.values()):
+        raise SystemExit(f"chip_smoke: the {label} gradients differ between the graphs and the eager route: {errs}")
+    for st in (st_g, st_e):
+        used = [k for k, v in st.launches_forward.items() if v]
+        if not used or any(st.launches_forward[k] != st.trips or st.launches_backward[k] != st.trips for k in used):
+            raise SystemExit(f"chip_smoke: {label}: every kernel must launch once a trip forward and once in its "
+                             f"replay: {st.launches_forward}, {st.launches_backward}, {st.trips} trips")
+    conds = (n_g["counts"]["K5 gate"], n_g["counts"]["K5 countdown"])
+    if st_g.host_reads != st_g.chunks + 1 or conds != (st_g.trips + st_g.chunks,) * 2:
+        raise SystemExit(f"chip_smoke: {label}: host reads {st_g.host_reads}, chunks {st_g.chunks}, gate and "
+                         f"countdown launches {conds}, trips {st_g.trips}: each must launch once a trip and a chunk")
+    return equal, errs
+
+
+def grads_run(label, compiled, cam, spp, replicas, reps):
+    """render_film_grads by the graph route (its first call captures; then `reps` calls that
+    replay) and by the eager route (a warm-up, then one timed call), each timed call with the
+    counts zeroed just before and read just after; the graphs held against the eager route ->
+    numbers of both routes (the graphs' last call)."""
+    from tpupt_torch.render.diff import DIFF_FIELDS
+
+    first = grads_call(compiled, cam, spp, replicas, "graphs")
+    for rep in range(reps):
+        graphs = grads_call(compiled, cam, spp, replicas, "graphs")
+        if graphs[2].capture_s != 0.0:
+            raise SystemExit(f"chip_smoke: the {label} gradient pass captured again on a call of the same shape")
+    grads_call(compiled, cam, spp, replicas, "eager")  # warm-up
+    eager = grads_call(compiled, cam, spp, replicas, "eager")
+    for route, (mean, grads, st, n) in (("graphs, first call", first), ("graphs", graphs), ("eager", eager)):
+        fin = float(torch.isfinite(mean).all(dim=-1).float().mean())
+        finite = all(bool(torch.isfinite(grads[k]).all()) for k in DIFF_FIELDS)
+        n.update(film_finite_share=fin, grads_finite=finite,
+                 grad_abs_sum={k: float(grads[k].abs().sum()) for k in DIFF_FIELDS})
+        log(f"grads [{label}] {route}: {cam.image_width}x{cam.image_height} {spp} spp max_depth {cam.max_depth}, "
+            f"{st.lanes} lanes: {n['wall_s']:.4f} s, {st.rays} forward rays, {n['rays_per_s']:.4e} rays/s fwd+bwd, "
+            f"{st.trips} trips, forward {st.forward_s:.4f} s ({n['forward_ms_per_trip']:.3f} ms a trip), backward "
+            f"{st.backward_s:.4f} s ({n['backward_ms_per_trip']:.3f} ms a trip), capture {st.capture_s:.4f} s, "
+            f"host reads {st.host_reads}, chunks {st.chunks}, peak memory {n['peak_gib']:.3f} GiB, launches "
+            f"{n['counts']}, film finite share {fin:.6f}, gradients finite {finite}")
+        if fin < 1.0 or not finite or mean.shape != (cam.image_height, cam.image_width, 3):
+            raise SystemExit(f"chip_smoke: the {label} gradient run ({route}) is not finite: film {fin}")
+        if not n["grad_abs_sum"]["mat_params"] > 0.0 or not n["grad_abs_sum"]["tex_rgb"] > 0.0:
+            raise SystemExit(f"chip_smoke: the {label} gradients ({route}) are zero")
+        if n["counts"]["K1"] != 2 * st.trips:
+            raise SystemExit(f"chip_smoke: the {label} gradient run ({route}) launched K1 {n['counts']['K1']} "
+                             f"times in {st.trips} trips")
+    equal, errs = hold_routes(label, graphs, eager)
+    g, e = graphs[3], eager[3]
+    log(f"grads [{label}] graphs / eager: rays/s x{g['rays_per_s'] / e['rays_per_s']:.3f}, forward ms a trip "
+        f"{g['forward_ms_per_trip']:.3f} / {e['forward_ms_per_trip']:.3f}, backward ms a trip "
+        f"{g['backward_ms_per_trip']:.3f} / {e['backward_ms_per_trip']:.3f}, peak GiB {g['peak_gib']:.3f} / "
+        f"{e['peak_gib']:.3f}; the first call {first[3]['wall_s']:.4f} s with {first[3]['capture_s']:.4f} s capture")
+    return dict(graphs=g, graphs_first_call=first[3], eager=e, film_bit_equal=equal, rel_l1=errs,
+                launches_forward=g["launches_forward"], launches_replay=g["launches_replay"])
+
+
 def compare_grads(label, build, dev, kernel, bvh=None):
-    """render_film_grads on the card against the CPU (plain kernels) -> numbers. Fails
-    unless every gradient field is within GRAD_REL_L1 (relative L1) and 95% of the
-    image's pixels within rtol 1e-3 / atol 1e-4. bvh as in Scene.compile."""
+    """render_film_grads on the card, by the graphs and by the eager route, held against each
+    other (hold_routes) and against the CPU (plain kernels): every gradient field within
+    GRAD_REL_L1 (relative L1) and 95% of the image's pixels within rtol 1e-3 / atol 1e-4.
+    bvh as in Scene.compile -> numbers."""
     from tpupt_torch.render.diff import render_film_grads
 
     scene, cam = build()
     m_cpu, g_cpu = render_film_grads(scene.compile(device="cpu", bvh=bvh), cam, seed=0)
-    zero_counts()
-    m_gpu, g_gpu, st = render_film_grads(scene.compile(device=dev, bvh=bvh), cam, seed=0, return_stats=True)
-    torch.cuda.synchronize()
-    counts = read_counts()
+    compiled = scene.compile(device=dev, bvh=bvh)
+    spp = cam.samples_per_pixel
+    graphs = grads_call(compiled, cam, spp, None, "graphs")
+    eager = grads_call(compiled, cam, spp, None, "eager")
+    equal, route_errs = hold_routes(label, graphs, eager)
+    m_gpu, g_gpu, st, n = graphs
     close = float(np.isclose(m_gpu.cpu().numpy(), m_cpu.numpy(), rtol=1e-3, atol=1e-4).all(-1).mean())
-    errs = {k: float((g_gpu[k].cpu() - ref).abs().sum() / ref.abs().sum().clamp_min(1e-30))
-            for k, ref in g_cpu.items()}
+    errs = rel_l1({k: v.cpu() for k, v in g_gpu.items()}, g_cpu)
     finite = all(bool(torch.isfinite(g).all()) for g in g_gpu.values())
-    log(f"grads [{label}] {cam.image_width}x{cam.image_height} {cam.samples_per_pixel} spp max_depth "
-        f"{cam.max_depth}, cuda vs cpu: {close:.4f} of pixels within rtol 1e-3 / atol 1e-4; relative L1 "
-        f"error by field {errs} (limit {GRAD_REL_L1}); {kernel} launches {st.launches_forward[kernel]} "
-        f"forward + {st.launches_backward[kernel]} in the replays ({st.trips} trips)")
-    if (counts[kernel] == 0 or st.launches_backward[kernel] != st.launches_forward[kernel]
+    log(f"grads [{label}] {cam.image_width}x{cam.image_height} {spp} spp max_depth {cam.max_depth}, cuda (graphs) "
+        f"vs cpu: {close:.4f} of pixels within rtol 1e-3 / atol 1e-4; relative L1 error by field {errs} (limit "
+        f"{GRAD_REL_L1}); {kernel} launches {st.launches_forward[kernel]} forward + {st.launches_backward[kernel]} "
+        f"in the replays ({st.trips} trips); capture {st.capture_s:.4f} s, host reads {st.host_reads}, chunks "
+        f"{st.chunks}")
+    if (n["counts"][kernel] != 2 * st.trips or st.launches_backward[kernel] != st.launches_forward[kernel]
             or st.launches_forward[kernel] != st.trips):
         raise SystemExit(f"chip_smoke: the {label} gradient run did not launch {kernel} in every trip")
     if close < 0.95 or not finite or any(e > GRAD_REL_L1 for e in errs.values()):
         raise SystemExit(f"chip_smoke: the {label} gradients on the card disagree with the cpu's")
-    return dict(close=close, rel_l1=errs, launches_forward=st.launches_forward,
-                launches_replay=st.launches_backward, trips=st.trips)
+    return dict(close=close, rel_l1=errs, film_bit_equal_to_eager=equal, rel_l1_to_eager=route_errs,
+                launches_forward=st.launches_forward, launches_replay=st.launches_backward, trips=st.trips,
+                graphs={k: n[k] for k in ("wall_s", "capture_s", "host_reads", "chunks", "peak_gib", "counts")},
+                eager={k: eager[3][k] for k in ("wall_s", "host_reads", "peak_gib")})
 
 
 # ---------------------------------------------------------------------------
@@ -1223,7 +1386,7 @@ def main(argv=None) -> int:
 
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"decode_ms": decode_ms, "card": card}))
-    log(json.dumps({"grads": grads}))
+    log(json.dumps({"grads": grads, "profile": GRAD_PROFILE or None, "card": card}))
     log(json.dumps({"sharded": sharded, "card": card}))
     log(json.dumps({"routes": ROUTES, "card": card}))
     if args.profile:
@@ -1317,6 +1480,9 @@ def run(args, dev, hit_kernel, render_image, cornell_box_scene, balls_scene, eve
             bad["K4"] += n
             err["K4"] = max(err["K4"], e)
     bad["K5"], err["K5"], k5_timing = check_stage_cond(dev)
+    grad_bad, grad_err, grad_timing = check_grad_conds(dev)
+    for mode in ("gate", "countdown"):
+        bad[f"K5 {mode}"], err[f"K5 {mode}"] = grad_bad[mode], grad_err[mode]
     if any(bad.values()):
         raise SystemExit(f"chip_smoke: kernels disagree with their plain versions: {bad}")
 
@@ -1350,6 +1516,7 @@ def run(args, dev, hit_kernel, render_image, cornell_box_scene, balls_scene, eve
     bounce["K4"] = (b4["ms"], b4["plain_ms"], b4["bound_ms"], b4["bound_by"])
     mxu = check_mxu(s6b.data, k4_rays["scene6"]["camera"], same_rays["scene6"]["camera"]["ms"])
     timing["K5"] = k5_timing
+    timing["K5 gate"], timing["K5 countdown"] = grad_timing["gate"], grad_timing["countdown"]
     kernel_ms = {k: v[0] for k, v in timing.items()}
 
     # ---- the main path: the renders through render_image, each by both routes ----
@@ -1420,14 +1587,17 @@ def run(args, dev, hit_kernel, render_image, cornell_box_scene, balls_scene, eve
     if fin_g < 1.0 or abs(mean_g - mean_c) > tol:
         raise SystemExit("chip_smoke: the environment-map film differs from the cpu render")
 
-    # ---- gradients: render_film_grads through K1 (and K2), forward trips and their replays ----
-    phase("gradients")
+    # ---- gradients: render_film_grads as graphs (the forward trips and their replays looping on
+    # the card, K5's gate and countdown) and by the eager route, its plain version ----
+    phase("gradients, graphs and eager route")
     grads = {}
     for i, (label, cfg) in enumerate(GRADS.items()):
         gscene, gcam = cornell_box_scene(cfg["width"], cfg["spp"])
         grads[label] = grads_run(label, gscene.compile(device=dev), gcam, cfg["spp"], cfg["replicas"],
-                                 reps=2 if i == 0 else 1, warm_up=i == 0)
+                                 reps=2 if i == 0 else 1)
     grads["box, cuda vs cpu"] = compare_grads("box", lambda: grad_box_scene(16, 8), dev, "K1")
+    grads["hdr env, cuda vs cpu"] = compare_grads("hdr env (principled, metal, HDR map)",
+                                                  lambda: grad_hdr_scene(16, 8), dev, "K1")
     grads["mesh, cuda vs cpu"] = compare_grads("mesh (5000 triangles, flat cluster route)",
                                                lambda: small_mesh_scene(16, 8), dev, "K2")
     grads["two-level mesh, cuda vs cpu"] = compare_grads(
@@ -1462,7 +1632,12 @@ def run(args, dev, hit_kernel, render_image, cornell_box_scene, balls_scene, eve
         "K3": ("K3 closest_tri_two_level", "tpupt_torch/csrc/tri_kernel.cu", "tpupt/ops/pallas_tri.py:632"),
         "K4": ("K4 closest_tri_bvh", "tpupt_torch/csrc/bvh_kernel.cu", "tpupt/ops/bvh.py:362"),
         "K5": ("K5 stage_cond", "tpupt_torch/csrc/loop_cond.cu", "tpupt/render/integrator.py:306"),
+        "K5 gate": ("K5 grad_gate", "tpupt_torch/csrc/loop_cond.cu", "tpupt/render/diff.py:244"),
+        "K5 countdown": ("K5 grad_countdown", "tpupt_torch/csrc/loop_cond.cu", "tpupt/render/diff.py:246"),
     }
+    # the gradient modes' launches: the `grads` pass by the graphs (a replayed call)
+    for mode in ("K5 gate", "K5 countdown"):
+        launches[mode] = grads["grads"]["graphs"]["counts"][mode]
     kernels = []
     for k, (name, source, replaces) in meta.items():
         ms, plain_ms, bound_ms, bound_by = timing[k]
@@ -1487,6 +1662,8 @@ def run(args, dev, hit_kernel, render_image, cornell_box_scene, balls_scene, eve
         elif k == "K5":  # every render: a stage's first test and one an iteration, on the card
             paths = {"cornell": cl["K5"], "scene6": s6l["K5"], "bigmesh": bl["K5"], "balls": ball["K5"],
                      "env": el["K5"], **textured_k5, "scene6 bvh": s6bl["K5"], "bigmesh bvh": bbl["K5"]}
+        elif k in ("K5 gate", "K5 countdown"):  # every gradient pass by the graphs: once a trip and a chunk
+            paths = {label: (g["graphs"] if "graphs" in g else g)["counts"][k] for label, g in grads.items()}
         else:
             paths = {"K2": {"scene6": s6l["K2"]}, "K3": {"bigmesh": bl["K3"]},
                      "K4": {"scene6 bvh": s6bl["K4"], "bigmesh bvh": bbl["K4"]}}[k]
@@ -1513,49 +1690,59 @@ def device_kernels(prof):
     return kernels, sum(e.self_device_time_total for e in kernels), sum(e.count for e in kernels)
 
 
+GRAD_PROFILE = {}  # --profile: the gradient pass's device time and busy share by route
+
+
 def profile_grads(out_dir, compiled, cam, spp, replicas):
-    """torch.profiler over the gradient path's forward trips alone (trace_film_scan, no
-    graph) and over one render_film_grads run: device busy share, device kernels a trip,
-    and what the backward pass (replay and backward kernels) adds a trip."""
+    """torch.profiler over the eager route's forward trips alone (trace_film_scan, no autograd
+    graph) and over one eager render_film_grads call (plain_grads): device kernel time,
+    kernels a trip, what the backward pass adds a trip. torch.profiler does not trace CUDA
+    graphs (PERF.md §7), so the busy share of each route is that device time (the graphs run
+    the same kernels at the same shapes, with bit-equal films) over the route's own forward
+    and whole wall time, measured without the profiler (the graphs' call a replay)."""
     from torch.profiler import ProfilerActivity, profile
 
-    from tpupt_torch.render.diff import render_film_grads, trace_film_scan
+    from tpupt_torch.render.diff import film_lanes, trace_film_scan
 
     os.makedirs(out_dir, exist_ok=True)
-    render_film_grads(compiled, cam, spp=spp, replicas=replicas)  # warm-up
-    torch.cuda.synchronize()
-    npix, k = cam.image_width * cam.image_height, spp // replicas
-    pix = torch.arange(npix, dtype=torch.int32, device=compiled.data.device).repeat(replicas)
-    sample0 = torch.repeat_interleave(torch.arange(replicas, dtype=torch.int32, device=pix.device) * k, npix)
-    counts = {}
+    dev = compiled.data.device
+    pix, rows, cols, sample0, _, r, k = film_lanes(cam, spp, replicas, None, dev)
+    for route in ("graphs", "eager"):  # warm-up; the graphs' first call captures
+        grads_call(compiled, cam, spp, replicas, route)
+    walls = {route: grads_call(compiled, cam, spp, replicas, route)[3] for route in ("graphs", "eager")}
+    counts, dev_ms = {}, {}
     for phase in ("forward", "forward+backward"):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            if phase == "forward":  # the same trips without a graph: nothing saved, nothing replayed
+            if phase == "forward":  # the same trips without autograd: nothing saved, nothing replayed
                 stats = {}
-                trace_film_scan(compiled.data, cam.init(pix.device), pix, pix // cam.image_width,
-                                pix % cam.image_width, sample0, spp, 0, k, cam.max_depth,
+                trace_film_scan(compiled.data, cam.init(dev), pix, rows, cols, sample0, spp, 0, k, cam.max_depth,
                                 compiled.has_lights, stats=stats)
                 trips = stats["trips"]
             else:
-                _, _, st = render_film_grads(compiled, cam, spp=spp, replicas=replicas,
-                                             return_stats=True)
-                trips = st.trips
+                trips = grads_call(compiled, cam, spp, replicas, "eager")[2].trips
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
         kernels, dev_us, n = device_kernels(prof)
-        counts[phase] = n
+        counts[phase], dev_ms[phase] = n, dev_us / 1e3
         path = os.path.join(out_dir, f"grads_profile_{phase.replace('+', '_')}.txt")
         with open(path, "w") as f:
             f.write(prof.key_averages().table(sort_by="cuda_time_total", row_limit=40))
         top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:5]
-        log(f"profile grads [{phase}] {cam.image_width}x{cam.image_height} {spp} spp (under the "
+        log(f"profile grads [{phase}] {cam.image_width}x{cam.image_height} {spp} spp, eager route (under the "
             f"profiler): wall {wall:.3f} s, {trips} trips, device kernel time {dev_us / 1e3:.3f} ms "
             f"({100 * dev_us / 1e6 / wall:.2f}% busy), {n} device kernels ({n / max(trips, 1):.0f} a "
             f"trip); top: " + "; ".join(f"{e.key[:60]} {e.self_device_time_total / 1e3:.3f} ms" for e in top)
             + f"; table in {path}")
+    busy = {route: dict(forward=dev_ms["forward"] / 1e3 / w["forward_s"],
+                        forward_backward=dev_ms["forward+backward"] / 1e3 / w["wall_s"],
+                        forward_s=w["forward_s"], wall_s=w["wall_s"]) for route, w in walls.items()}
+    GRAD_PROFILE.update(device_ms=dev_ms, kernels=counts, trips=trips, busy=busy)
     log(f"profile grads: the backward pass adds {(counts['forward+backward'] - counts['forward']) / max(trips, 1):.0f} "
-        f"device kernels a trip (its replay of the forward trip included)")
+        f"device kernels a trip (its replay of the forward trip included); busy share (the eager route's device "
+        f"time over each route's wall, without the profiler): " + ", ".join(
+            f"{route} forward {100 * b['forward']:.2f}%, forward+backward {100 * b['forward_backward']:.2f}%"
+            for route, b in busy.items()))
 
 
 PROFILES = {}  # --profile: each render's device busy share by route

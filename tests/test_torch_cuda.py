@@ -24,7 +24,7 @@ from tpupt_torch.render.renderer import render_image
 from tpupt_torch.scene.builder import Diffuse, Light, Scene
 from tpupt_torch.scenes import balls_scene, cornell_box_scene
 
-from chip_smoke import FIXTURE_DIR, FIXTURES, TWINS, random_mesh_scene, write_twin_assets
+from chip_smoke import FIXTURE_DIR, FIXTURES, TWINS, grad_hdr_scene, random_mesh_scene, write_twin_assets
 
 
 @pytest.fixture
@@ -598,10 +598,11 @@ def test_kernels_take_no_gradient_on_the_card(cuda):
 
 
 def recorded_kernel_outputs(monkeypatch, compiled, cam, module=hit_kernel, name="closest_sphere_quad"):
-    """render_film_grads with the outputs of every call of module.name (K1's wrapper by
-    default) recorded -> (forward calls, the backward pass's calls in trip order,
-    GradStats)."""
-    from tpupt_torch.render.diff import render_film_grads
+    """render_film_grads by the eager route (checkpointed trips; within plain_grads on the
+    card, where the graph route would call the wrapper only while capturing) with the
+    outputs of every call of module.name (K1's wrapper by default) recorded -> (forward
+    calls, the backward pass's calls in trip order, GradStats)."""
+    from tpupt_torch.render.diff import plain_grads, render_film_grads
 
     calls = []
     wrapped = getattr(module, name)
@@ -613,7 +614,8 @@ def recorded_kernel_outputs(monkeypatch, compiled, cam, module=hit_kernel, name=
         return out
 
     monkeypatch.setattr(module, name, spy)
-    _, grads, st = render_film_grads(compiled, cam, spp=4, replicas=2, return_stats=True)
+    with plain_grads():
+        _, grads, st = render_film_grads(compiled, cam, spp=4, replicas=2, return_stats=True)
     assert all(bool(torch.isfinite(g).all()) for g in grads.values())
     n = len(calls) // 2
     return calls[:n], calls[n:][::-1], st
@@ -621,9 +623,11 @@ def recorded_kernel_outputs(monkeypatch, compiled, cam, module=hit_kernel, name=
 
 @pytest.mark.parametrize("which", ["K1", "K2", "K3", "K4"])
 def test_checkpoint_replay_bits_equal_on_the_card(cuda, monkeypatch, which):
-    """A kernel's outputs in each forward trip and in its replay in the backward pass are
-    the same bits (K1 and K4 are deterministic; K2 and K3 zero their packet counter at
-    every launch), and it launches once for each."""
+    """A kernel's outputs in each forward trip and in its checkpoint replay in the backward
+    pass are the same bits (K1 and K4 are deterministic; K2 and K3 zero their packet counter
+    at every launch), and it launches once for each: the eager route's replays. The graph
+    route's replays are held by test_grad_graph_route_matches_eager_route (films bit-equal,
+    gradients within relative L1 1e-6)."""
     bvh = None
     if which == "K1":
         scene, cam = cornell_box_scene(16, 4)
@@ -925,3 +929,235 @@ def test_stage_cond_kernel_bit_equal_to_plain(cuda, n):
         out = loop_cond.stage_cond(alive, sample, sample0, 8, 32, thr, it, bump=True)
         assert out.tolist() == loop_cond.stage_cond_plain(alive, sample, sample0, 8, 32, thr).tolist()
         assert int(it) == 1
+
+
+# ---- the gradient pass as CUDA graphs (render/graph.py GradGraphs) against the eager route ----
+
+
+def _grad_case(which, cuda):
+    """(compiled, camera) of a small gradient case on the card: the box (K1), the Cornell box
+    (K1), the HDR-map scene (K1; principled, metal, the env_img gradient), the mesh on the flat
+    clusters (K2), 60000 random triangles on the two-level clusters (K3), the mesh on the BVH
+    (K4)."""
+    if which == "cornell":
+        scene, cam = cornell_box_scene(32, 8)
+        cam.max_depth = 12
+    elif which == "box":
+        scene, cam = _grad_box_scene()
+    elif which == "hdr":
+        scene, cam = grad_hdr_scene(16, 8)
+    elif which == "two_level":
+        scene, cam = random_mesh_scene(16, 8)
+    else:
+        scene, cam = _mesh_scene(16, 8)
+    return scene.compile(device=cuda, bvh=True if which == "bvh" else None), cam
+
+
+def _grad_counts():
+    from tpupt_torch.ops import loop_cond
+
+    return {"K1": hit_kernel.launches, "K2": tri_kernel.launches["flat"], "K3": tri_kernel.launches["two_level"],
+            "K4": bvh_kernel.launches, "gate": loop_cond.gate_launches, "countdown": loop_cond.countdown_launches}
+
+
+def _grads_by_route(compiled, cam, seed=0, route="graphs"):
+    """render_film_grads by one route -> (mean, grads, GradStats, launches by kernel in the call)."""
+    from tpupt_torch.render import diff as D
+
+    before = _grad_counts()
+    with D.plain_grads() if route == "eager" else _nullcontext():
+        mean, grads, st = D.render_film_grads(compiled, cam, seed=seed, return_stats=True)
+    torch.cuda.synchronize()
+    after = _grad_counts()
+    return mean, grads, st, {k: after[k] - before[k] for k in before}
+
+
+def _nullcontext():
+    import contextlib
+
+    return contextlib.nullcontext()
+
+
+def _assert_grads_rel_l1(got, ref, rel_l1=1e-6):
+    for n, g in ref.items():
+        assert bool(torch.isfinite(got[n]).all()), n
+        total, err = float(g.abs().sum()), float((got[n] - g).abs().sum())
+        assert (err == 0.0) if total == 0.0 else err <= rel_l1 * total, (n, err, total)
+
+
+@pytest.mark.parametrize("which", ["box", "cornell", "hdr", "mesh", "two_level", "bvh"])
+def test_grad_graph_route_matches_eager_route(cuda, which):
+    """render_film_grads through the graphs against plain_grads() on the card: film bit-equal,
+    rays and trips equal, gradients within relative L1 1e-6 (a trip's gradient is summed
+    before it joins the total, and the gathers' backward adds with atomics); every kernel of
+    the case launched once a trip forward and once in its replay, the gate once a trip and
+    once a chunk, the countdown the same; one host read a chunk and one more."""
+    compiled, cam = _grad_case(which, cuda)
+    m_g, g_g, st_g, n_g = _grads_by_route(compiled, cam)
+    m_e, g_e, st_e, _ = _grads_by_route(compiled, cam, route="eager")
+    assert torch.equal(m_g.view(torch.int32), m_e.view(torch.int32))
+    assert (st_g.rays, st_g.trips) == (st_e.rays, st_e.trips) and st_g.trips > 0
+    _assert_grads_rel_l1(g_g, g_e)
+    kernel = {"mesh": "K2", "two_level": "K3", "bvh": "K4"}.get(which, "K1")
+    assert st_g.launches_forward[kernel] == st_g.launches_backward[kernel] == st_g.trips
+    assert n_g[kernel] == 2 * st_g.trips
+    assert n_g["gate"] == st_g.trips + st_g.chunks and n_g["countdown"] == st_g.trips + st_g.chunks
+    assert st_g.host_reads == st_g.chunks + 1 and st_g.chunks >= 1 and st_g.capture_s > 0
+    assert not any(v.data_ptr() == w.data_ptr() for v in g_g.values() for w in g_e.values())
+
+
+def test_grad_graph_second_call_replays(cuda):
+    """A second call of one configuration, with another seed and other parameter values,
+    replays the kept graphs (capture_s 0) and equals the eager route at that seed; the first
+    call's gradients are the caller's, untouched by the second."""
+    from tpupt_torch.render import diff as D
+
+    compiled, cam = _grad_case("box", cuda)
+    _, g1, st1, _ = _grads_by_route(compiled, cam, seed=0)
+    kept = {n: g.clone() for n, g in g1.items()}
+    with torch.no_grad():
+        compiled.data.tex_rgb.mul_(0.75)
+    m2, g2, st2, n2 = _grads_by_route(compiled, cam, seed=7)
+    m_e, g_e, st_e, _ = _grads_by_route(compiled, cam, seed=7, route="eager")
+    assert st1.capture_s > 0 and st2.capture_s == 0.0
+    assert torch.equal(m2.view(torch.int32), m_e.view(torch.int32)) and st2.trips == st_e.trips
+    _assert_grads_rel_l1(g2, g_e)
+    assert all(torch.equal(g1[n], kept[n]) for n in kept)
+    assert n2["K1"] == 2 * st2.trips  # every launch on the card, none eager, counted
+    assert len(compiled._grad_graphs) == 1
+
+
+def test_grad_graph_recaptures_after_a_geometry_edit(cuda):
+    """An edit in place of a geometry tensor between two calls makes new graphs (the kept ones
+    would read K1's old tables), and the call equals the eager route on the edited scene."""
+    compiled, cam = _grad_case("box", cuda)
+    _grads_by_route(compiled, cam)
+    with torch.no_grad():
+        compiled.data.sph_r.mul_(1.25)  # a bigger sphere
+    m, g, st, _ = _grads_by_route(compiled, cam)
+    m_e, g_e, _, _ = _grads_by_route(compiled, cam, route="eager")
+    assert st.capture_s > 0
+    assert torch.equal(m.view(torch.int32), m_e.view(torch.int32))
+    _assert_grads_rel_l1(g, g_e)
+
+
+def test_grad_graph_chunks(cuda, monkeypatch):
+    """A staging budget of one segment: chunks of 8 trips, their rows copied out and back,
+    one host read a chunk and one more; the same film and gradients as the eager route."""
+    from tpupt_torch.render import diff as D
+
+    compiled, cam = _grad_case("cornell", cuda)
+    monkeypatch.setattr(D, "STAGING_BYTES", 1)
+    m, g, st, n = _grads_by_route(compiled, cam)
+    m_e, g_e, st_e, _ = _grads_by_route(compiled, cam, route="eager")
+    assert st.chunks == -(-st.trips // D.SEGMENT) >= 2 and st.host_reads == st.chunks + 1
+    assert torch.equal(m.view(torch.int32), m_e.view(torch.int32)) and st.trips == st_e.trips
+    _assert_grads_rel_l1(g, g_e)
+    assert n["gate"] == st.trips + st.chunks and n["countdown"] == st.trips + st.chunks
+
+
+@pytest.mark.parametrize("which", ["cornell", "mesh", "two_level", "bvh"])
+def test_grad_graph_replays_see_the_forward_bits(cuda, monkeypatch, which):
+    """Inside the graphs, each replayed trip's output state is, bit for bit, the carry its
+    forward trip handed to the next trip (saved in the next staging row), with chunks of one
+    segment so that every chunk's rows went out to a store and came back: the kernels (K1;
+    K2, K3 or K4 on the meshes) see the forward trip's rays in the replay. Counted on the
+    card, for every replay but each chunk's newest (whose next carry is in the next chunk)."""
+    from tpupt_torch.render import diff as D
+
+    compiled, cam = _grad_case(which, cuda)
+    mismatches = torch.zeros(1, dtype=torch.int64, device=cuda)
+    checked = torch.zeros(1, dtype=torch.int64, device=cuda)
+    step = D.FilmScanStages._step
+
+    def checked_step(self, s, sd):
+        out = step(self, s, sd)
+        if torch.is_grad_enabled():  # a replay (forward trips run without autograd)
+            row = torch.clamp(self.row + 1, max=self.chunk_trips - 1)
+            inside = (self.index + 1 < self.chunk[1]).to(torch.int64)
+            for key, buf in self.saved.items():
+                a, b = out[0][key].detach(), torch.index_select(buf, 0, row)[0]
+                if a.is_floating_point():
+                    a, b = a.view(torch.int32), b.view(torch.int32)
+                mismatches.add_((a != b).sum() * inside)
+            checked.add_(inside)
+        return out
+
+    monkeypatch.setattr(D.FilmScanStages, "_step", checked_step)
+    monkeypatch.setattr(D, "STAGING_BYTES", 1)
+    _, _, st, n = _grads_by_route(compiled, cam)
+    kernel = {"mesh": "K2", "two_level": "K3", "bvh": "K4"}.get(which, "K1")
+    assert st.chunks == st.trips // D.SEGMENT >= 1 and n[kernel] == 2 * st.trips
+    assert int(mismatches) == 0 and int(checked) == st.trips - st.chunks > 0
+
+
+@pytest.mark.parametrize("part", ["forward", "backward"])
+def test_grad_graph_capture_failure_raises(cuda, monkeypatch, part):
+    """A host read planted in a trip under capture makes render_film_grads raise, naming the
+    trip being captured; the eager route does not take over, and the next call captures anew."""
+    from tpupt_torch.render import diff as D
+
+    trip = getattr(D.FilmScanStages, f"{part}_trip")
+
+    def planted(self):
+        if torch.cuda.is_current_stream_capturing():
+            int(self.rays)  # a host read: illegal while the stream is captured
+        trip(self)
+
+    monkeypatch.setattr(D.FilmScanStages, f"{part}_trip", planted)
+    compiled, cam = _grad_case("box", cuda)
+    with pytest.raises(RuntimeError, match=f"capturing the {part} trip"):
+        D.render_film_grads(compiled, cam, seed=0)
+    monkeypatch.setattr(D.FilmScanStages, f"{part}_trip", trip)
+    m, g, st, _ = _grads_by_route(compiled, cam)
+    m_e, _, _, _ = _grads_by_route(compiled, cam, route="eager")
+    assert st.capture_s > 0 and torch.equal(m.view(torch.int32), m_e.view(torch.int32))
+
+
+def test_grad_graph_bodies_hold_only_body_nodes(cuda):
+    """The census of the captured trips: kernel, memcpy, memset (and empty, child graph)
+    nodes only, in particular no event record or wait nodes from the autograd engine."""
+    from tpupt_torch.ops import loop_cond
+    from tpupt_torch.render import graph as G
+
+    compiled, cam = _grad_case("mesh", cuda)
+    _grads_by_route(compiled, cam)
+    (graphs,) = compiled._grad_graphs.values()
+    for name in ("forward", "backward"):
+        kinds = G._node_types(graphs.bodies[name])
+        assert kinds.get("kernel", 0) > 0 and set(kinds) <= set(loop_cond.BODY_NODE_TYPES), (name, kinds)
+
+
+@pytest.mark.parametrize("n", [1, 4097, 65_536, 360_000])
+def test_grad_conditions_bit_equal_to_plain(cuda, n):
+    """K5's gate and countdown against their plain versions at every trip of two chunks, with
+    lanes with work and without, segments of 1, 3 and 8 trips."""
+    from tpupt_torch.ops import loop_cond
+
+    rng = np.random.default_rng(n)
+    k, spp = 4, 16
+    sample0 = torch.from_numpy(rng.integers(0, spp, n).astype(np.int32)).to(cuda)
+    bad = 0
+    for segment in (1, 3, 8):
+        cap = -(-(k * 5) // segment) * segment
+        for p_alive, s in ((0.2, 1), (0.0, k)):
+            alive = torch.from_numpy(rng.uniform(size=n) < p_alive).to(cuda)
+            sample = torch.full((n,), s, dtype=torch.int32, device=cuda)
+            for c0 in (0, 2 * segment):
+                chunk = torch.tensor([c0, c0 + 2 * segment], device=cuda)
+                for t in range(c0, c0 + 2 * segment + 1):
+                    for bump in (False, True):
+                        trips = torch.tensor([t - bump], device=cuda)
+                        trips_ref = trips.clone()
+                        out = loop_cond.grad_gate(alive, sample, sample0, k, spp, segment, cap, trips, chunk, bump)
+                        ref = loop_cond.grad_gate_plain(alive, sample, sample0, k, spp, segment, cap, trips_ref,
+                                                        chunk, bump)
+                        bad += int(out.tolist() != ref.tolist() or int(trips) != int(trips_ref))
+    chunk = torch.tensor([5, 13], device=cuda)
+    index, replays = torch.tensor([12], device=cuda), torch.zeros(1, dtype=torch.int64, device=cuda)
+    index_ref, replays_ref = index.clone(), replays.clone()
+    for bump in [False] + [True] * 9:
+        out = loop_cond.grad_countdown(index, chunk, replays, bump)
+        ref = loop_cond.grad_countdown_plain(index_ref, chunk, replays_ref, bump)
+        bad += int(out.tolist() != ref.tolist() or int(index) != int(index_ref) or int(replays) != int(replays_ref))
+    assert bad == 0

@@ -1,29 +1,40 @@
-// The wavefront's loop on the card: the condition kernel of a stage, and the launch's
-// graph of CUDA conditional WHILE nodes that runs it.
+// The wavefront's loop on the card: the condition kernels of its loops, and the graph of
+// CUDA conditional WHILE nodes that runs them.
 //
-// Replaces the condition of the reference's compaction stages, each a lax.while_loop
-// that XLA runs on the device (tpupt/render/integrator.py:306-322): a stage iterates
-// while lanes with work are left and more of them than the stage's threshold.
-//   inputs  alive [n] bool, sample [n] i32, sample0 [n] i32 (the stage's state), k,
-//           spp_limit, thr; a lane has work when alive | (sample < k & sample0 + sample
-//           < spp_limit), as in render/integrator.py's work_mask.
-//   outputs out [2] i64: the lanes with work, and go = (that count > thr); iters [1] i64
-//           is bumped when bump != 0 (the body of the stage just ran once). Inside a
-//           graph the kernel also sets the WHILE node's condition to go.
+// K5 replaces the conditions that XLA runs on the device in the reference: those of the
+// render's compaction stages, each a lax.while_loop (tpupt/render/integrator.py:306-322),
+// and those of the gradient pass (tpupt/render/diff.py:232-248), a lax.scan of segments
+// of trips, each gated by lax.cond(has_work, ...), whose VJP walks the trips backwards.
+// A lane has work when alive | (sample < k & sample0 + sample < spp_limit), as in
+// render/integrator.py's work_mask. Three conditions:
+//   stage     (cond_kernel, MODE_STAGE) a stage iterates while the lanes with work are
+//             more than its threshold thr: go = (count > thr); iters [1] i64 is bumped when
+//             bump != 0 (the body of the stage just ran once).
+//   gate      (cond_kernel, MODE_GATE) a forward trip of the gradient pass: bump adds one to
+//             the trip counter trips [1] i64; then go = trips < cap & trips < chunk[1] &
+//             (trips % segment != 0 | count > 0): inside a segment the trips go on, at a
+//             segment boundary only while some lane has work (lax.cond's has_work), and
+//             they stop at the cap (every segment run) and at the end of the chunk of
+//             trips that the staging buffer holds (render/diff.py).
+//   countdown (countdown_kernel) a backward trip: bump takes one from the trip index and
+//             adds one to the replay counter; go = index >= chunk[0], the chunk's first trip.
+// Outputs out [2] i64: the lanes with work and go (stage, gate); the index and go
+// (countdown). Inside a graph the kernel also sets the WHILE node's condition to go.
 //
-// Bound. It reads 9 bytes a lane and writes 24 bytes: 3.2 MB at the Cornell launch's
-// 360000 lanes, about 1 us at the card's 3.35 TB/s. Design: one pass over the lanes by
-// a grid of at most two blocks an SM, a warp-shuffle sum in each block, one atomic add
-// a block; the last block to finish (a ticket counter) reads the total, decides, bumps
-// the counter, resets the scratch for the next launch and sets the condition. So the
-// decision costs one kernel and no trip to the host.
+// Bound. A work count reads 9 bytes a lane and writes 24 bytes: 3.2 MB at the Cornell
+// launch's 360000 lanes, about 1 us at the card's 3.35 TB/s. Design: one pass over the
+// lanes by a grid of at most two blocks an SM, a warp-shuffle sum in each block, one
+// atomic add a block; the last block to finish (a ticket counter) reads the total,
+// decides, bumps the counter, resets the scratch for the next launch and sets the
+// condition. So the decision costs one kernel and no trip to the host. The countdown
+// reads and writes a few words: one thread.
 //
-// The graph. A launch is a chain in one CUDA graph: for each stage, this kernel once
-// (the WHILE node's first value: lax.while_loop tests its condition before the first
-// body), then a WHILE node whose body is the stage's captured iteration (a child graph,
-// captured by PyTorch on one stream) followed by this kernel with bump = 1; between the
-// stages, the captured compaction (a child graph). The host launches the chain once and
-// reads its counters once (render/graph.py).
+// The graph. A launch is a chain in one CUDA graph: for each loop, its condition kernel
+// once (the WHILE node's first value: lax.while_loop and lax.cond test before the first
+// body), then a WHILE node whose body is the loop's captured step (a child graph,
+// captured by PyTorch on one stream) followed by the condition kernel with bump = 1;
+// between the render's stages, the captured compaction (a child graph). The host
+// launches the chain once and reads its counters once (render/graph.py).
 
 #include <cuda_runtime.h>
 
@@ -33,20 +44,34 @@ namespace {
 
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
+constexpr int MODE_STAGE = 0;
+constexpr int MODE_GATE = 1;
 
 struct CondArgs {
   const unsigned char* alive;
   const int* sample;
   const int* sample0;
   int n, k, spp_limit, thr;
-  unsigned int* scratch;  // [2]: lanes with work so far, blocks done; zero between launches
-  long long* iters;       // the stage's iteration counter
-  long long* out;         // [2]: lanes with work, go
+  unsigned int* scratch;   // [2]: lanes with work so far, blocks done; zero between launches
+  long long* iters;        // stage: its iteration counter; gate: the trip counter
+  long long* out;          // [2]: lanes with work, go
+  int bump;
+  int mode;                // MODE_STAGE or MODE_GATE
+  int segment;             // gate: trips a segment
+  long long cap;           // gate: the most trips
+  const long long* chunk;  // gate: [2] the chunk's first trip and its end
+};
+
+struct CountdownArgs {
+  long long* index;        // the trip to replay next
+  const long long* chunk;  // [2] the chunk's first trip and its end
+  long long* replays;      // trips replayed
+  long long* out;          // [2]: the index, go
   int bump;
 };
 
 __global__ void __launch_bounds__(THREADS)
-stage_cond_kernel(CondArgs a, cudaGraphConditionalHandle handle, int set_handle) {
+cond_kernel(CondArgs a, cudaGraphConditionalHandle handle, int set_handle) {
   unsigned int count = 0;
   for (int i = blockIdx.x * THREADS + threadIdx.x; i < a.n; i += gridDim.x * THREADS) {
     const int s = a.sample[i];
@@ -68,11 +93,30 @@ stage_cond_kernel(CondArgs a, cudaGraphConditionalHandle handle, int set_handle)
   __syncthreads();
   if (!last || threadIdx.x != 0) return;
   __threadfence();
-  const unsigned int total = atomicExch(&a.scratch[0], 0u);
+  const long long total = atomicExch(&a.scratch[0], 0u);
   a.scratch[1] = 0u;
-  const bool go = static_cast<long long>(total) > static_cast<long long>(a.thr);
   if (a.bump) *a.iters += 1;
+  bool go;
+  if (a.mode == MODE_GATE) {
+    const long long t = *a.iters;
+    go = t < a.cap && t < a.chunk[1] && (t % a.segment != 0 || total > 0);
+  } else {
+    go = total > static_cast<long long>(a.thr);
+  }
   a.out[0] = total;
+  a.out[1] = go ? 1 : 0;
+  if (set_handle) cudaGraphSetConditional(handle, go ? 1u : 0u);
+}
+
+__global__ void countdown_kernel(CountdownArgs a, cudaGraphConditionalHandle handle, int set_handle) {
+  if (blockIdx.x != 0 || threadIdx.x != 0) return;
+  if (a.bump) {
+    *a.index -= 1;
+    *a.replays += 1;
+  }
+  const long long j = *a.index;
+  const bool go = j >= a.chunk[0];
+  a.out[0] = j;
   a.out[1] = go ? 1 : 0;
   if (set_handle) cudaGraphSetConditional(handle, go ? 1u : 0u);
 }
@@ -86,10 +130,18 @@ int blocks_for(int n) {
   return std::max(1, std::min(2 * sms, (n + THREADS - 1) / THREADS));
 }
 
-CondArgs make_args(const unsigned char* alive, const int* sample, const int* sample0, int n,
-                   int k, int spp_limit, int thr, unsigned int* scratch, long long* iters,
-                   long long* out, int bump) {
-  return CondArgs{alive, sample, sample0, n, k, spp_limit, thr, scratch, iters, out, bump};
+CondArgs stage_args(const unsigned char* alive, const int* sample, const int* sample0, int n, int k,
+                    int spp_limit, int thr, unsigned int* scratch, long long* iters, long long* out,
+                    int bump) {
+  return CondArgs{alive, sample, sample0, n, k, spp_limit, thr, scratch, iters, out, bump,
+                  MODE_STAGE, 1, 0, nullptr};
+}
+
+CondArgs gate_args(const unsigned char* alive, const int* sample, const int* sample0, int n, int k,
+                   int spp_limit, int segment, long long cap, long long* trips, const long long* chunk,
+                   unsigned int* scratch, long long* out, int bump) {
+  return CondArgs{alive, sample, sample0, n, k, spp_limit, 0, scratch, trips, out, bump,
+                  MODE_GATE, segment, cap, chunk};
 }
 
 // The launch's graph: a chain of nodes, `last` the node the next one follows.
@@ -99,18 +151,77 @@ struct LoopGraph {
   cudaGraphNode_t last = nullptr;
 };
 
-cudaError_t add_cond_node(cudaGraphNode_t* node, cudaGraph_t graph, const cudaGraphNode_t* deps,
-                          size_t n_deps, CondArgs a, cudaGraphConditionalHandle handle) {
-  int set_handle = 1;
-  void* params[] = {&a, &handle, &set_handle};
+cudaError_t add_kernel_node(cudaGraphNode_t* node, cudaGraph_t graph, const cudaGraphNode_t* deps,
+                            size_t n_deps, void* func, int blocks, int threads, void** params) {
   cudaKernelNodeParams kp = {};
-  kp.func = reinterpret_cast<void*>(stage_cond_kernel);
-  kp.gridDim = dim3(blocks_for(a.n));
-  kp.blockDim = dim3(THREADS);
+  kp.func = func;
+  kp.gridDim = dim3(blocks);
+  kp.blockDim = dim3(threads);
   kp.sharedMemBytes = 0;
   kp.kernelParams = params;  // copied into the node
   kp.extra = nullptr;
   return cudaGraphAddKernelNode(node, graph, deps, n_deps, &kp);
+}
+
+// The condition kernel of a stage or a gate as a graph node, its bump set to `bump`.
+struct AddCond {
+  CondArgs a;
+  cudaError_t operator()(cudaGraphNode_t* node, cudaGraph_t graph, const cudaGraphNode_t* deps,
+                         size_t n_deps, int bump, cudaGraphConditionalHandle handle) const {
+    CondArgs args = a;
+    args.bump = bump;
+    int set_handle = 1;
+    void* params[] = {&args, &handle, &set_handle};
+    return add_kernel_node(node, graph, deps, n_deps, reinterpret_cast<void*>(cond_kernel),
+                           blocks_for(args.n), THREADS, params);
+  }
+};
+
+struct AddCountdown {
+  CountdownArgs a;
+  cudaError_t operator()(cudaGraphNode_t* node, cudaGraph_t graph, const cudaGraphNode_t* deps,
+                         size_t n_deps, int bump, cudaGraphConditionalHandle handle) const {
+    CountdownArgs args = a;
+    args.bump = bump;
+    int set_handle = 1;
+    void* params[] = {&args, &handle, &set_handle};
+    return add_kernel_node(node, graph, deps, n_deps, reinterpret_cast<void*>(countdown_kernel), 1, 32,
+                           params);
+  }
+};
+
+// Append a loop to the chain: its condition (bump = 0), then a WHILE node whose body is a
+// copy of `body` followed by the condition with bump = 1.
+template <typename Cond>
+int add_while(LoopGraph* g, cudaGraph_t body, const Cond& add_cond) {
+  cudaGraphConditionalHandle cond;
+  cudaError_t err = cudaGraphConditionalHandleCreate(&cond, g->graph, 0, 0);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaGraphNode_t first;
+  err = add_cond(&first, g->graph, g->last ? &g->last : nullptr, g->last ? 1 : 0, 0, cond);
+  if (err != cudaSuccess) return static_cast<int>(err);
+
+  cudaGraphNodeParams params = {};
+  params.type = cudaGraphNodeTypeConditional;
+  params.conditional.handle = cond;
+  params.conditional.type = cudaGraphCondTypeWhile;
+  params.conditional.size = 1;
+  cudaGraphNode_t loop;
+#if CUDART_VERSION >= 13000
+  err = cudaGraphAddNode(&loop, g->graph, &first, nullptr, 1, &params);
+#else
+  err = cudaGraphAddNode(&loop, g->graph, &first, 1, &params);
+#endif
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaGraph_t body_graph = params.conditional.phGraph_out[0];
+  cudaGraphNode_t step;
+  err = cudaGraphAddChildGraphNode(&step, body_graph, nullptr, 0, body);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaGraphNode_t again;
+  err = add_cond(&again, body_graph, &step, 1, 1, cond);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  g->last = loop;
+  return 0;
 }
 
 int census(cudaGraph_t graph, int* counts, int n_types) {
@@ -138,14 +249,32 @@ int census(cudaGraph_t graph, int* counts, int n_types) {
 
 }  // namespace
 
-// The condition kernel launched on its own (no graph): the tests' and chip_smoke.py's
-// comparison with its plain version.
+// The condition kernels launched on their own (no graph): the tests' and chip_smoke.py's
+// comparisons with their plain versions, and the gradient pass's eager first trips.
 extern "C" int tpupt_stage_cond(const unsigned char* alive, const int* sample, const int* sample0,
                                 int n, int k, int spp_limit, int thr, unsigned int* scratch,
                                 long long* iters, long long* out, int bump, void* stream) {
   if (n < 0 || thr < 0) return static_cast<int>(cudaErrorInvalidValue);
-  const CondArgs a = make_args(alive, sample, sample0, n, k, spp_limit, thr, scratch, iters, out, bump);
-  stage_cond_kernel<<<blocks_for(n), THREADS, 0, static_cast<cudaStream_t>(stream)>>>(a, 0, 0);
+  const CondArgs a = stage_args(alive, sample, sample0, n, k, spp_limit, thr, scratch, iters, out, bump);
+  cond_kernel<<<blocks_for(n), THREADS, 0, static_cast<cudaStream_t>(stream)>>>(a, 0, 0);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int tpupt_grad_gate(const unsigned char* alive, const int* sample, const int* sample0, int n,
+                               int k, int spp_limit, int segment, long long cap, long long* trips,
+                               const long long* chunk, unsigned int* scratch, long long* out, int bump,
+                               void* stream) {
+  if (n < 0 || segment < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const CondArgs a = gate_args(alive, sample, sample0, n, k, spp_limit, segment, cap, trips, chunk, scratch,
+                               out, bump);
+  cond_kernel<<<blocks_for(n), THREADS, 0, static_cast<cudaStream_t>(stream)>>>(a, 0, 0);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int tpupt_grad_countdown(long long* index, const long long* chunk, long long* replays,
+                                    long long* out, int bump, void* stream) {
+  const CountdownArgs a{index, chunk, replays, out, bump};
+  countdown_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>(a, 0, 0);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -170,44 +299,34 @@ extern "C" int tpupt_loop_graph_add_child(void* handle, void* child) {
   return static_cast<int>(err);
 }
 
-// Append a stage: the condition kernel, then a WHILE node whose body is a copy of `body`
-// followed by the condition kernel with bump = 1.
+// Append a render stage: a WHILE node over `body` under the stage condition.
 extern "C" int tpupt_loop_graph_add_while(void* handle, void* body, const unsigned char* alive,
                                           const int* sample, const int* sample0, int n, int k,
                                           int spp_limit, int thr, unsigned int* scratch,
                                           long long* iters, long long* out) {
-  LoopGraph* g = static_cast<LoopGraph*>(handle);
   if (n < 0 || thr < 0) return static_cast<int>(cudaErrorInvalidValue);
-  cudaGraphConditionalHandle cond;
-  cudaError_t err = cudaGraphConditionalHandleCreate(&cond, g->graph, 0, 0);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  CondArgs a = make_args(alive, sample, sample0, n, k, spp_limit, thr, scratch, iters, out, 0);
-  cudaGraphNode_t first;
-  err = add_cond_node(&first, g->graph, g->last ? &g->last : nullptr, g->last ? 1 : 0, a, cond);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  return add_while(static_cast<LoopGraph*>(handle), static_cast<cudaGraph_t>(body),
+                   AddCond{stage_args(alive, sample, sample0, n, k, spp_limit, thr, scratch, iters, out, 0)});
+}
 
-  cudaGraphNodeParams params = {};
-  params.type = cudaGraphNodeTypeConditional;
-  params.conditional.handle = cond;
-  params.conditional.type = cudaGraphCondTypeWhile;
-  params.conditional.size = 1;
-  cudaGraphNode_t loop;
-#if CUDART_VERSION >= 13000
-  err = cudaGraphAddNode(&loop, g->graph, &first, nullptr, 1, &params);
-#else
-  err = cudaGraphAddNode(&loop, g->graph, &first, 1, &params);
-#endif
-  if (err != cudaSuccess) return static_cast<int>(err);
-  cudaGraph_t body_graph = params.conditional.phGraph_out[0];
-  cudaGraphNode_t step;
-  err = cudaGraphAddChildGraphNode(&step, body_graph, nullptr, 0, static_cast<cudaGraph_t>(body));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  a.bump = 1;
-  cudaGraphNode_t again;
-  err = add_cond_node(&again, body_graph, &step, 1, a, cond);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  g->last = loop;
-  return 0;
+// Append the gradient pass's forward trips: a WHILE node over `body` under the gate.
+extern "C" int tpupt_loop_graph_add_gate_while(void* handle, void* body, const unsigned char* alive,
+                                               const int* sample, const int* sample0, int n, int k,
+                                               int spp_limit, int segment, long long cap, long long* trips,
+                                               const long long* chunk, unsigned int* scratch,
+                                               long long* out) {
+  if (n < 0 || segment < 1) return static_cast<int>(cudaErrorInvalidValue);
+  return add_while(static_cast<LoopGraph*>(handle), static_cast<cudaGraph_t>(body),
+                   AddCond{gate_args(alive, sample, sample0, n, k, spp_limit, segment, cap, trips, chunk,
+                                     scratch, out, 0)});
+}
+
+// Append the gradient pass's backward trips: a WHILE node over `body` under the countdown.
+extern "C" int tpupt_loop_graph_add_countdown_while(void* handle, void* body, long long* index,
+                                                    const long long* chunk, long long* replays,
+                                                    long long* out) {
+  return add_while(static_cast<LoopGraph*>(handle), static_cast<cudaGraph_t>(body),
+                   AddCountdown{CountdownArgs{index, chunk, replays, out, 0}});
 }
 
 extern "C" int tpupt_loop_graph_instantiate(void* handle) {

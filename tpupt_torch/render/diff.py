@@ -15,6 +15,13 @@ Design (the detached estimator):
 - Trips run in segments of SEGMENT, each gated on the host by whether any lane has
   work left (one device read a segment, in place of the reference's ``lax.cond``);
   segments after the last live lane are skipped both ways.
+- On CUDA, ``render_film_grads`` runs the same trips as one device program, as the
+  reference runs its jitted ``_film_grads_step``: ``FilmScanStages`` holds the pass's
+  state in static tensors, saves each forward trip's carry into a staging buffer and
+  replays the trips newest first, one ``autograd.grad`` a trip; render/graph.py
+  captures its parts into CUDA graphs whose forward and backward loops, and the segment
+  gate, run on the card (K5, ops/loop_cond.py). The eager route above is the CPU's and
+  the graphs' plain version on the card (``plain_grads``).
 - ``bounce_step(detach=True)`` detaches every sampling-derived quantity (sampled
   direction, mixture pdf, russian-roulette probability), so gradients flow only
   through integrand factors, and a zero pdf kills its lane.
@@ -29,6 +36,7 @@ in the last bits of a gradient.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import time as _time
@@ -37,14 +45,38 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..core.dtypes import REAL
-from ..ops import bvh_kernel, hit_kernel, tri_kernel
+from ..ops import bvh_kernel, hit_kernel, loop_cond, tri_kernel
 from .camera import generate_rays
-from .integrator import _mis_probs, _radiance_step, _stream_step, stream_state
+from .integrator import STEP_KEYS, _mis_probs, _radiance_step, _stream_step, reset_stream_state, stream_state
 
 # SceneData fields exposed as differentiable parameters
 DIFF_FIELDS = ("mat_params", "tex_rgb", "env_color", "env_img", "atlas")
 
 SEGMENT = 8  # trips per early-exit segment
+
+# The carry a forward trip saves and its replay loads, (field, dtype, values a lane): 77 B a
+# lane. The 4-byte fields first, so that each starts 4-byte aligned in a trip's row.
+SAVED = (("o", REAL, 3), ("d", REAL, 3), ("throughput", REAL, 3), ("radiance", REAL, 3), ("film", REAL, 3),
+         ("time", REAL, 1), ("bounce", torch.int32, 1), ("sample", torch.int32, 1),
+         ("cur_sample", torch.int32, 1), ("alive", torch.bool, 1))
+# The most bytes the staging buffer of saved trips may hold (FilmScanStages): it sets the
+# trips of a chunk, and so the host reads of a CUDA gradient pass (one a chunk, and one).
+STAGING_BYTES = 256 << 20
+
+_plain = False  # CUDA gradient passes run the eager route (plain_grads)
+
+
+@contextlib.contextmanager
+def plain_grads():
+    """Within the block, render_film_grads on CUDA runs the eager route (checkpointed trips
+    driven from the host) instead of the graphs: the plain version that the tests and
+    chip_smoke.py hold the graphs against, film bit for bit."""
+    global _plain
+    before, _plain = _plain, True
+    try:
+        yield
+    finally:
+        _plain = before
 
 
 def init_params(sd) -> dict:
@@ -151,9 +183,10 @@ def trace_film_scan(
     s = stream_state(pixel_ids, rows, cols, sample0)
     p_light, p_bsdf = _mis_probs(has_lights)
     rays = torch.zeros((), dtype=torch.int64, device=pixel_ids.device)
-    trips = 0
+    trips = reads = 0
     for _ in range(-(-(k * max_depth) // segment_size)):
-        work = s["alive"] | ((s["sample"] < k) & ((s["sample0"] + s["sample"]) < spp_limit))
+        work = loop_cond.work_mask(s["alive"], s["sample"], s["sample0"], k, spp_limit)
+        reads += 1
         if not bool(work.any()):  # the one host read of the segment
             break
         for _ in range(segment_size):
@@ -165,7 +198,240 @@ def trace_film_scan(
         trips += segment_size
     if stats is not None:
         stats["trips"] = stats.get("trips", 0) + trips
+        stats["host_reads"] = stats.get("host_reads", 0) + reads + with_rays
     return (s["film"], int(rays)) if with_rays else s["film"]
+
+
+def trip_cap(k, max_depth, segment_size):
+    """The most trips trace_film_scan runs: every segment of k * max_depth trips."""
+    return -(-(k * max_depth) // segment_size) * segment_size
+
+
+def chunk_trips(lanes, k, max_depth, segment_size, budget=None):
+    """Trips a chunk of FilmScanStages: the most whole segments whose saved carries fit the
+    staging budget (STAGING_BYTES), at least one segment, at most the trip cap."""
+    budget = STAGING_BYTES if budget is None else budget
+    fit = budget // _row_bytes(lanes) // segment_size * segment_size
+    return max(segment_size, min(trip_cap(k, max_depth, segment_size), fit))
+
+
+def _row_bytes(lanes):
+    """Bytes of one trip's saved carry, rounded up to 16."""
+    n = sum(lanes * width * dtype.itemsize for _, dtype, width in SAVED)
+    return -(-n // 16) * 16
+
+
+class FilmScanStages:
+    """trace_film_scan and its backward pass over static state: the gradient pass as device steps.
+
+    The counterpart of the reference's jitted ``_film_grads_step`` (jax.vjp over the
+    trips' ``lax.scan``, each trip checkpointed), in parts that render/graph.py captures,
+    as ``integrator.StreamStages`` is for the render. Every tensor is made once and updated
+    in place: the trip state of ``stream_state``; the parameter leaves (static tensors that
+    require grad, into which each call copies the caller's values); the film cotangent, the
+    seed (a 0-d int64 tensor), the gradient sums, the cotangents of the carry's throughput
+    and radiance (``ct_T``, ``ct_L``), and the counters (trips, rays, replays) on the
+    device. A staging buffer holds the carries of up to ``chunk_trips`` trips, a trip's
+    77 B a lane in one row, so that a chunk's rows are one contiguous copy.
+
+    - ``reset()``: the state before the first trip; gradient sums, cotangents and counters zero;
+    - ``begin_chunk(c0)``: the forward chunk from trip c0 (its end c0 + chunk_trips on the device);
+    - ``forward_trip()``: saves the carry at the device's trip index, then one trip of the
+      detached estimator without autograd, its rays added on the device;
+    - ``cond_forward(bump)``: the segment gate (K5, ``loop_cond.grad_gate``);
+    - ``begin_backward(c0, n, store)``: a chunk's rows back into the staging buffer (unless
+      they never left it) and the device's trip index at its newest trip;
+    - ``backward_trip()``: loads the saved trip at the device's index, replays it with
+      autograd over the leaves and the carry's throughput and radiance, takes the gradient
+      of T.ct_T + L.ct_L + film.cot, adds the leaves' part to the sums and keeps the rest
+      as the next (earlier) trip's ct_T and ct_L;
+    - ``cond_backward(bump)``: the countdown (K5, ``loop_cond.grad_countdown``).
+
+    ``forward_pass`` and ``backward_pass`` walk the chunks, with a function that runs one
+    chunk's trips: ``run()`` passes host loops, one read of the condition a trip (the stage
+    runner on the CPU, which the tests hold against the eager route); render/graph.py passes
+    graph launches, one host read a chunk. Every trip's carry is saved, as the reference's
+    scan saves a checkpoint a trip; the chunks' rows wait in stores of their own size, so
+    memory follows the trips run, as the eager route's checkpoints do.
+    """
+
+    def __init__(self, sd, cam, b, spp_limit, k, max_depth, has_lights, device, segment_size=SEGMENT,
+                 chunk=None):
+        if segment_size < 1:
+            raise ValueError(f"FilmScanStages: segment_size must be >= 1, got {segment_size}")
+        self.cam = cam
+        self.b, self.spp_limit, self.k, self.max_depth, self.has_lights = b, spp_limit, k, max_depth, has_lights
+        self.segment = segment_size
+        self.cap = trip_cap(k, max_depth, segment_size)
+        self.chunk_trips = chunk_trips(b, k, max_depth, segment_size) if chunk is None else chunk
+        if self.chunk_trips < 1 or self.chunk_trips % segment_size:
+            raise ValueError(f"FilmScanStages: a chunk must be whole segments of {segment_size} trips, "
+                             f"got {self.chunk_trips}")
+        self.p_light, self.p_bsdf = _mis_probs(has_lights)
+        i32 = dict(dtype=torch.int32, device=device)
+        i64 = dict(dtype=torch.int64, device=device)
+        proto = stream_state(torch.zeros(1, **i32), torch.zeros(1, **i32), torch.zeros(1, **i32),
+                             torch.zeros(1, **i32))
+        self.state = {key: torch.empty((b, *v.shape[1:]), dtype=v.dtype, device=device) for key, v in proto.items()}
+        self.leaves = {n: torch.empty_like(getattr(sd, n)).requires_grad_(True) for n in DIFF_FIELDS}
+        self.sdp = apply_params(sd, self.leaves)
+        self.grads = {n: torch.zeros_like(v, requires_grad=False) for n, v in self.leaves.items()}
+        self.cot = torch.zeros((b, 3), dtype=REAL, device=device)
+        self.ct_T = torch.zeros((b, 3), dtype=REAL, device=device)
+        self.ct_L = torch.zeros((b, 3), dtype=REAL, device=device)
+        self.seed = torch.zeros((), **i64)
+        self.counters = torch.zeros(3, **i64)  # trips run, rays, trips replayed
+        self.trips, self.rays, self.replays = (self.counters[i : i + 1] for i in range(3))
+        self.index = torch.zeros(1, **i64)  # the trip a backward replays next
+        self.chunk = torch.zeros(2, **i64)  # the chunk's first trip and its end
+        self.row = torch.zeros(1, **i64)  # the staging row of the trip at hand
+        self.scratch = torch.zeros(2, dtype=torch.int32, device=device)  # the gate kernel's
+        self.cond_out = torch.zeros(2, **i64)
+        self.row_bytes = _row_bytes(b)
+        self.staging = torch.empty((self.chunk_trips, self.row_bytes), dtype=torch.uint8, device=device)
+        self.saved, off = {}, 0
+        for key, dtype, width in SAVED:
+            size = b * width * dtype.itemsize
+            view = self.staging[:, off : off + size].view(dtype)
+            self.saved[key] = view.view(self.chunk_trips, b, width) if width > 1 else view
+            off += size
+
+    def set_inputs(self, pixel_ids, rows, cols, sample0, params, cot, seed):
+        """The call's inputs into the static tensors: lanes, parameter values by DIFF_FIELDS
+        name (copied into the leaves, never aliased), the lanes' film cotangent [B,3], the seed."""
+        s = self.state
+        for key, val in (("pix", pixel_ids), ("row", rows), ("col", cols), ("sample0", sample0)):
+            s[key].copy_(val)
+        with torch.no_grad():
+            for n, leaf in self.leaves.items():
+                if params[n].shape != leaf.shape:
+                    raise ValueError(f"FilmScanStages: {n} has shape {tuple(params[n].shape)}, the "
+                                     f"stages were made for {tuple(leaf.shape)}")
+                leaf.copy_(params[n])
+        self.cot.copy_(cot)
+        self.seed.fill_(seed)
+
+    def reset(self):
+        reset_stream_state(self.state)
+        self.counters.zero_()
+        for g in self.grads.values():
+            g.zero_()
+        self.ct_T.zero_()
+        self.ct_L.zero_()
+
+    def begin_chunk(self, c0):
+        self.chunk[0].fill_(c0)
+        self.chunk[1].fill_(c0 + self.chunk_trips)
+
+    def _step(self, s, sd):
+        return _stream_step(s, sd, self.cam, self.spp_limit, self.seed, self.k, self.max_depth,
+                            self.has_lights, self.p_light, self.p_bsdf, True)
+
+    def forward_trip(self):
+        s = self.state
+        torch.sub(self.trips, self.chunk[:1], out=self.row)
+        for key, buf in self.saved.items():
+            buf.index_copy_(0, self.row, s[key].unsqueeze(0))
+        with torch.no_grad():
+            out, n_rays = self._step(s, self.sdp)
+        for key in STEP_KEYS:
+            s[key].copy_(out[key])
+        self.rays.add_(n_rays)
+
+    def cond_forward(self, bump=False):
+        s = self.state
+        return loop_cond.grad_gate(s["alive"], s["sample"], s["sample0"], self.k, self.spp_limit, self.segment,
+                                   self.cap, self.trips, self.chunk, bump, out=self.cond_out,
+                                   scratch=self.scratch)
+
+    def stash(self, n):
+        """The first n staging rows copied into a store of their own (one copy)."""
+        store = torch.empty((n, self.row_bytes), dtype=torch.uint8, device=self.staging.device)
+        store.copy_(self.staging[:n])
+        return store
+
+    def begin_backward(self, c0, n, store=None):
+        if store is not None:
+            self.staging[:n].copy_(store)
+        self.chunk[0].fill_(c0)
+        self.chunk[1].fill_(c0 + n)
+        self.index.fill_(c0 + n - 1)
+
+    def backward_trip(self):
+        torch.sub(self.index, self.chunk[:1], out=self.row)
+        s = dict(self.state)
+        for key, buf in self.saved.items():
+            s[key] = torch.index_select(buf, 0, self.row)[0]
+        T_in = s["throughput"] = s["throughput"].detach().requires_grad_(True)
+        L_in = s["radiance"] = s["radiance"].detach().requires_grad_(True)
+        names = list(self.leaves)
+        with torch.enable_grad():
+            out, _ = self._step(s, self.sdp)
+            loss = ((out["throughput"] * self.ct_T).sum() + (out["radiance"] * self.ct_L).sum()
+                    + (out["film"] * self.cot).sum())
+            got = torch.autograd.grad(loss, [self.leaves[n] for n in names] + [T_in, L_in], allow_unused=True)
+        for n, g in zip(names, got):
+            if g is not None:
+                self.grads[n].add_(g)
+        for ct, g in ((self.ct_T, got[-2]), (self.ct_L, got[-1])):
+            if g is None:
+                ct.zero_()
+            else:
+                ct.copy_(g)
+
+    def cond_backward(self, bump=False):
+        return loop_cond.grad_countdown(self.index, self.chunk, self.replays, bump, out=self.cond_out)
+
+    def forward_pass(self, run_chunk):
+        """The forward trips, a chunk at a time: run_chunk(c0) runs the chunk from trip c0 and
+        returns (trips run in all, lanes with work at the last gate). -> the chunks,
+        (first trip, trips, store of its rows or None: the newest, left in the staging buffer)."""
+        chunks, c0 = [], 0
+        while True:
+            trips, n_work = run_chunk(c0)
+            more = trips == c0 + self.chunk_trips and trips < self.cap and n_work > 0
+            if trips > c0:
+                chunks.append((c0, trips - c0, self.stash(trips - c0) if more else None))
+            if not more:
+                return chunks
+            c0 = trips
+
+    def backward_pass(self, chunks, run_chunk):
+        """The backward trips, newest chunk first: run_chunk(c0, n) replays the chunk's trips
+        from its newest, its rows in the staging buffer."""
+        while chunks:
+            c0, n, store = chunks.pop()
+            self.begin_backward(c0, n, store)
+            run_chunk(c0, n)
+
+    def run(self, log=None):
+        """The whole pass driven from the host -> (film [B,3], grads by DIFF_FIELDS name, rays
+        int, trips int). log (a list), if given, gets ("forward" or "backward", the trip
+        counter or index, lanes with work or the index, go) at every read of a condition."""
+
+        def loop(cond, phase):
+            bump = False
+            while True:
+                a, go = cond(bump).tolist()
+                if log is not None:
+                    log.append((phase, int(self.trips if phase == "forward" else self.index), a, go))
+                if not go:
+                    return a
+                (self.forward_trip if phase == "forward" else self.backward_trip)()
+                bump = True
+
+        def forward_chunk(c0):
+            self.begin_chunk(c0)
+            n_work = loop(self.cond_forward, "forward")
+            return int(self.trips), n_work
+
+        self.reset()
+        chunks = self.forward_pass(forward_chunk)
+        self.backward_pass(chunks, lambda c0, n: loop(self.cond_backward, "backward"))
+        trips, rays, replays = self.counters.tolist()
+        if replays != trips:
+            raise RuntimeError(f"FilmScanStages: the backward pass replayed {replays} of {trips} trips")
+        return self.state["film"], self.grads, rays, trips
 
 
 @dataclasses.dataclass
@@ -181,11 +447,39 @@ class GradStats:
     # backward pass's replays of them
     launches_forward: dict = dataclasses.field(default_factory=dict)
     launches_backward: dict = dataclasses.field(default_factory=dict)
+    # host seconds spent capturing and instantiating graphs (CUDA route; part of forward_s
+    # and backward_s; 0 when the call replayed graphs kept from an earlier call)
+    capture_s: float = 0.0
+    host_reads: int = 0  # reads of device values by the host: a segment (eager), a chunk + 1 (graphs)
+    chunks: int = 0  # chunks of forward trips (graphs; the eager route has none)
 
 
 def _sync(dev):
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
+
+
+def film_lanes(camera, spp, replicas=None, cotangent=None, device=None):
+    """render_film_grads' lanes: r lanes a pixel, lane j*npix + i taking pixel i's samples
+    from j*k -> (pixel ids, rows, cols, first samples [B] int32, the lanes' film cotangent
+    [B,3] (cotangent [H*W,3], default ones, over spp), r, k). replicas (r) defaults to about
+    2^18 lanes, lowered until it divides spp."""
+    w = camera.image_width
+    npix = w * camera.image_height
+    if replicas is None:
+        replicas = max(1, min((1 << 18) // npix, spp))
+    while spp % replicas:  # k must be exact: every sample traced exactly once
+        replicas -= 1
+    r = replicas
+    k = spp // r
+    pix = torch.arange(npix, dtype=torch.int32, device=device).repeat(r)
+    rows, cols = pix // w, pix % w
+    lane_sample0 = torch.repeat_interleave(torch.arange(r, dtype=torch.int32, device=device) * k, npix)
+    if cotangent is None:
+        cot_pix = torch.ones((npix, 3), dtype=REAL, device=device)
+    else:
+        cot_pix = torch.as_tensor(cotangent, dtype=REAL, device=device).reshape(npix, 3)
+    return pix, rows, cols, lane_sample0, cot_pix.repeat(r, 1) / spp, r, k
 
 
 def render_film_grads(
@@ -200,6 +494,11 @@ def render_film_grads(
     per pixel [H*W,3] (default ones: the gradient of the image sum). replicas (r)
     defaults to about 2^18 lanes, lowered until it divides spp. return_stats=True
     appends a GradStats.
+
+    On CUDA the pass runs as CUDA graphs (render/graph.py, ``grad_graphs``), kept on the
+    compiled scene for later calls of the same configuration (seed, cotangent and the
+    parameters' values are inputs); within ``plain_grads()``, and on the CPU, it runs the
+    eager route. The film and the gradients are the caller's own tensors either way.
     """
     sd = compiled.data
     dev = sd.device
@@ -207,41 +506,37 @@ def render_film_grads(
     w, h = camera.image_width, camera.image_height
     spp = camera.samples_per_pixel if spp is None else spp
     npix = w * h
-    if replicas is None:
-        replicas = max(1, min((1 << 18) // npix, spp))
-    while spp % replicas:  # k must be exact: every sample traced exactly once
-        replicas -= 1
-    r = replicas
-    k = spp // r
-
-    pix = torch.arange(npix, dtype=torch.int32, device=dev).repeat(r)
-    rows, cols = pix // w, pix % w
-    lane_sample0 = torch.repeat_interleave(torch.arange(r, dtype=torch.int32, device=dev) * k, npix)
-    if cotangent is None:
-        cot_pix = torch.ones((npix, 3), dtype=REAL, device=dev)
-    else:
-        cot_pix = torch.as_tensor(cotangent, dtype=REAL, device=dev).reshape(npix, 3)
-    cot = cot_pix.repeat(r, 1) / spp
-
-    params = _leaves(init_params(sd))
+    pix, rows, cols, lane_sample0, cot, r, k = film_lanes(camera, spp, replicas, cotangent, dev)
     stats = GradStats(lanes=pix.shape[0])
-    scan_stats = {}
     before = _kernel_launches()
     t0 = _time.perf_counter()
-    with torch.enable_grad():
-        film, stats.rays = trace_film_scan(
-            apply_params(sd, params), cam, pix, rows, cols, lane_sample0, spp, seed, k,
-            camera.max_depth, compiled.has_lights, segment_size=segment_size,
-            with_rays=True, stats=scan_stats,
-        )
-        _sync(dev)
+    if dev.type == "cuda" and not _plain:
+        from .graph import grad_graphs
+
+        graphs = grad_graphs(compiled, camera, cam, pix.shape[0], spp, k, r, segment_size)
+        stats.trips = graphs.forward(pix, rows, cols, lane_sample0, init_params(sd), cot, seed)
         t1 = _time.perf_counter()
         mid = _kernel_launches()
-        grads = _grads((film * cot).sum(), params)
+        film, grads, stats.rays = graphs.backward()
+        stats.capture_s, stats.host_reads, stats.chunks = graphs.capture_s, graphs.host_reads, graphs.chunks
+    else:
+        params = _leaves(init_params(sd))
+        scan_stats = {}
+        with torch.enable_grad():
+            film, stats.rays = trace_film_scan(
+                apply_params(sd, params), cam, pix, rows, cols, lane_sample0, spp, seed, k,
+                camera.max_depth, compiled.has_lights, segment_size=segment_size,
+                with_rays=True, stats=scan_stats,
+            )
+            _sync(dev)
+            t1 = _time.perf_counter()
+            mid = _kernel_launches()
+            grads = _grads((film * cot).sum(), params)
+        stats.trips, stats.host_reads = scan_stats["trips"], scan_stats["host_reads"]
     _sync(dev)
-    stats.forward_s, stats.backward_s = t1 - t0, _time.perf_counter() - t1
+    stats.backward_s = _time.perf_counter() - t1
+    stats.forward_s = t1 - t0
     after = _kernel_launches()
-    stats.trips = scan_stats["trips"]
     stats.launches_forward = {n: mid[n] - before[n] for n in before}
     stats.launches_backward = {n: after[n] - mid[n] for n in before}
     mean = (film.detach().reshape(r, npix, 3).sum(0) / spp).reshape(h, w, 3)

@@ -22,17 +22,33 @@ capture, instantiate or launch raises and names the part; nothing falls back to 
 eager loop. Kernel launch counts stay true: a wrapper called under capture counts the
 call as captured, not launched, and each launch of the chain adds the captured calls
 of a stage's body times the iterations the stage ran on the card.
+
+The gradient pass (``GradGraphs``) is the counterpart of the reference's jitted
+``_film_grads_step`` (``tpupt/render/diff.py:252-276``): ``diff.FilmScanStages``' parts
+captured the same way, in two chains. The forward chain is a WHILE node whose body is one
+trip (its carry saved into the staging buffer) and the segment gate, launched once a
+chunk of trips; the host reads the trips run and the lanes with work once a chunk, and
+copies the chunk's saved rows out when another chunk follows. The backward chain is a
+WHILE node whose body is one trip's replay with its ``autograd.grad``, counting down,
+launched once a chunk, newest first, after the chunk's rows are copied back. The first
+call of a configuration runs its first forward trip and its first replay eagerly (they
+make what may not be made under capture) and captures; the graphs stay on the compiled
+scene (``grad_graphs``), so later calls with another seed, cotangent or parameter values
+replay them, unless the scene's geometry moved, which makes them anew.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import time as _time
+import weakref
 
 import torch
 
 from ..core.dtypes import REAL
 from ..ops import bvh_kernel, hit_kernel, loop_cond, tri_kernel
+from .diff import DIFF_FIELDS, FilmScanStages, chunk_trips
 from .integrator import StreamStages
 
 
@@ -61,6 +77,36 @@ def _node_types(graph: torch.cuda.CUDAGraph) -> dict:
     loop_cond.check(loop_cond.lib().tpupt_graph_census(graph.raw_cuda_graph(), counts, 32),
                     "census of a captured graph")
     return {loop_cond.NODE_TYPES.get(t, f"type {t}"): n for t, n in enumerate(counts) if n}
+
+
+def _capture(what, fn, pool, keep_graph=True):
+    """fn captured into a CUDA graph in `pool` -> (graph, kernel calls captured). A failure
+    raises RuntimeError naming `what`."""
+    g = torch.cuda.CUDAGraph(keep_graph=keep_graph)
+    _zero_captured()
+    g.capture_begin(pool=pool)
+    try:
+        fn()
+    except BaseException as e:
+        try:
+            g.capture_end()
+        except RuntimeError:
+            pass  # the capture was invalidated; the first error is the one to report
+        raise RuntimeError(f"{what} failed: {e}") from e
+    try:
+        g.capture_end()
+    except RuntimeError as e:
+        raise RuntimeError(f"{what} failed: {e}") from e
+    return g, _captured()
+
+
+def _body(what, graph):
+    """Raise unless a captured loop body holds only the node types a WHILE node's body takes."""
+    kinds = _node_types(graph)
+    bad = sorted(set(kinds) - set(loop_cond.BODY_NODE_TYPES))
+    if bad:
+        raise RuntimeError(f"{what} captured {bad} nodes ({kinds}); a WHILE node's body takes kernel, "
+                           "memcpy and memset nodes")
 
 
 class LaunchGraphs:
@@ -122,19 +168,7 @@ class _Launch:
     # -- capture ---------------------------------------------------------------------
 
     def _capture(self, what, fn, keep_graph=True):
-        g = torch.cuda.CUDAGraph(keep_graph=keep_graph)
-        _zero_captured()
-        g.capture_begin(pool=self.pool)
-        try:
-            fn()
-        except BaseException as e:
-            try:
-                g.capture_end()
-            except RuntimeError:
-                pass  # the capture was invalidated; the first error is the one to report
-            raise RuntimeError(f"render graph: capturing {what} failed: {e}") from e
-        g.capture_end()
-        return g, _captured()
+        return _capture(f"render graph: capturing {what}", fn, self.pool, keep_graph)
 
     def _capture_all(self):
         st = self.st
@@ -142,11 +176,7 @@ class _Launch:
         self.reset_graph, _ = self._capture("the launch's reset", st.reset, keep_graph=False)
         for i in range(n):
             body, calls = self._capture(f"the iteration of stage {i}", lambda i=i: st.step(i))
-            kinds = _node_types(body)
-            bad = sorted(set(kinds) - set(loop_cond.BODY_NODE_TYPES))
-            if bad:
-                raise RuntimeError(f"render graph: the iteration of stage {i} captured {bad} nodes "
-                                   f"({kinds}); a WHILE node's body takes kernel, memcpy and memset nodes")
+            _body(f"render graph: the iteration of stage {i}", body)
             self.bodies.append(body)
             self.per_iteration.append(calls)
             if i + 1 < n:
@@ -242,3 +272,196 @@ class _Launch:
             del self.parents[start]
             loop_cond.check(loop_cond.lib().tpupt_loop_graph_destroy(handle), "render graph: destroying a chain")
         self.bodies, self.compactions, self.finish, self.reset_graph = [], [], None, None
+
+
+# ---- the gradient pass -----------------------------------------------------------------
+
+
+def _stamp(sd) -> tuple:
+    """What the captured gradient pass assumes of a SceneData besides its parameters' values:
+    the object, each other tensor's address and version, every static field's value, the
+    parameters' shapes."""
+    out = [id(sd)]
+    for f in dataclasses.fields(sd):
+        v = getattr(sd, f.name)
+        if f.name in DIFF_FIELDS:
+            out.append(tuple(v.shape))
+        elif torch.is_tensor(v):
+            out.append((v.data_ptr(), v._version))
+        else:
+            out.append(repr(v))
+    return tuple(out)
+
+
+def grad_graphs(compiled, camera, cam, lanes, spp, k, r, segment_size) -> GradGraphs:
+    """The gradient pass's graphs of one configuration of `compiled`: kept on it, keyed by
+    the lanes, k, r, spp, max_depth, has_lights, segment_size, the chunk and the camera;
+    made at the configuration's first call and replayed by the later ones. Graphs whose
+    scene moved since their capture (``_stamp``: an edit in place, a replaced tensor or
+    field) are dropped and made anew. cam is the camera's data on the scene's device."""
+    sd = compiled.data
+    chunk = chunk_trips(lanes, k, camera.max_depth, segment_size)
+    key = (lanes, k, r, spp, camera.max_depth, compiled.has_lights, segment_size, chunk, repr(camera))
+    cache = compiled.__dict__.setdefault("_grad_graphs", {})
+    graphs = cache.get(key)
+    if graphs is not None and (graphs.closed or graphs.stamp != _stamp(sd)):
+        graphs.close()
+        graphs = None
+    if graphs is None:
+        graphs = cache[key] = GradGraphs(sd, cam, lanes, spp, k, camera.max_depth, compiled.has_lights,
+                                         segment_size, chunk)
+    return graphs
+
+
+def _destroy(chains: dict):
+    """Free the instantiated chains (on close, or when their GradGraphs is collected)."""
+    for name in list(chains):
+        loop_cond.lib().tpupt_loop_graph_destroy(chains.pop(name))
+
+
+class GradGraphs:
+    """The captured gradient pass of one configuration (``grad_graphs`` keeps them).
+
+    A call is ``forward(...)`` (-> trips), then ``backward()`` (-> film, grads, rays).
+    capture_s, host_reads and chunks describe the last call.
+    """
+
+    def __init__(self, sd, cam, b, spp_limit, k, max_depth, has_lights, segment_size, chunk):
+        device = sd.device
+        self.stamp = _stamp(sd)
+        self.stream = torch.cuda.Stream(device)
+        with torch.cuda.stream(self.stream):
+            self.st = FilmScanStages(sd, cam, b, spp_limit, k, max_depth, has_lights, device, segment_size, chunk)
+        self.pool = torch.cuda.graph_pool_handle()
+        self.reset_graph = None
+        self.bodies, self.calls = {}, {}  # "forward", "backward": captured body, kernel calls in it
+        self.chains: dict[str, ctypes.c_void_p] = {}  # "forward", "backward": instantiated chain
+        weakref.finalize(self, _destroy, self.chains)
+        self.closed = False
+        self.capture_s, self.host_reads, self.chunks = 0.0, 0, 0
+        self._chunks, self._trips, self._eager_replays = [], 0, 0
+
+    # -- capture ---------------------------------------------------------------------
+
+    def _capture_body(self, name, fn):
+        body, calls = _capture(f"gradient graph: capturing the {name} trip", fn, self.pool)
+        _body(f"gradient graph: the {name} trip", body)
+        self.bodies[name], self.calls[name] = body, calls
+
+    def _chain(self, name):
+        """The chain of one loop over the body `name`, instantiated."""
+        lib, st = loop_cond.lib(), self.st
+        handle = ctypes.c_void_p()
+        loop_cond.check(lib.tpupt_loop_graph_create(ctypes.byref(handle)), f"gradient graph: creating the {name} chain")
+        try:
+            body = self.bodies[name].raw_cuda_graph()
+            if name == "forward":
+                s = st.state
+                err = lib.tpupt_loop_graph_add_gate_while(
+                    handle, body, s["alive"].data_ptr(), s["sample"].data_ptr(), s["sample0"].data_ptr(), st.b, st.k,
+                    st.spp_limit, st.segment, st.cap, st.trips.data_ptr(), st.chunk.data_ptr(),
+                    st.scratch.data_ptr(), st.cond_out.data_ptr())
+            else:
+                err = lib.tpupt_loop_graph_add_countdown_while(
+                    handle, body, st.index.data_ptr(), st.chunk.data_ptr(), st.replays.data_ptr(),
+                    st.cond_out.data_ptr())
+            loop_cond.check(err, f"gradient graph: adding the WHILE node of the {name} trips")
+            loop_cond.check(lib.tpupt_loop_graph_instantiate(handle), f"gradient graph: instantiating the {name} chain")
+        except BaseException:
+            lib.tpupt_loop_graph_destroy(handle)
+            raise
+        self.chains[name] = handle
+
+    def _first(self, name, trip, cond, capture):
+        """A call's first trip of a loop that has no chain yet: eagerly, with every kernel
+        launched for real (it makes K1's tables, K4's wide tree and the packet counters of
+        the capture stream, none of which may be made under capture), then the capture."""
+        trip()
+        cond(bump=True)
+        torch.cuda.synchronize()
+        t0 = _time.perf_counter()
+        try:
+            capture()
+            self._chain(name)
+        except BaseException:  # nothing half-captured is kept: the next call makes new graphs
+            self.close()
+            raise
+        self.capture_s += _time.perf_counter() - t0
+
+    def _launch(self, name):
+        loop_cond.check(loop_cond.lib().tpupt_loop_graph_launch(self.chains[name], self.stream.cuda_stream),
+                        f"gradient graph: launching the {name} trips")
+
+    # -- a call ----------------------------------------------------------------------
+
+    def _forward_chunk(self, c0):
+        st = self.st
+        st.begin_chunk(c0)
+        eager = 0
+        if "forward" not in self.chains:
+            def capture():
+                self.reset_graph, _ = _capture("gradient graph: capturing the reset", st.reset, self.pool,
+                                               keep_graph=False)
+                self._capture_body("forward", st.forward_trip)
+
+            self._first("forward", st.forward_trip, st.cond_forward, capture)
+            eager = 1
+        self._launch("forward")
+        trips, n_work = torch.cat([st.trips, st.cond_out[:1]]).tolist()  # the host read of the chunk
+        self.host_reads += 1
+        self.chunks += 1
+        self._trips = trips
+        on_card = trips - c0 - eager
+        _add_launches({key: n * on_card for key, n in self.calls["forward"].items()})
+        loop_cond.gate_launches += 1 + on_card
+        return trips, n_work
+
+    def _backward_chunk(self, c0, n):
+        st = self.st
+        if "backward" not in self.chains:
+            self._first("backward", st.backward_trip, st.cond_backward,
+                        lambda: self._capture_body("backward", st.backward_trip))
+            self._eager_replays = 1
+        self._launch("backward")
+
+    def forward(self, pix, rows, cols, sample0, params, cot, seed) -> int:
+        """The forward trips of a call -> trips run. Inputs as ``FilmScanStages.set_inputs``."""
+        if self.closed:
+            raise RuntimeError("gradient graph: these graphs were closed")
+        st = self.st
+        self.capture_s, self.host_reads, self.chunks, self._eager_replays = 0.0, 0, 0, 0
+        caller = torch.cuda.current_stream()
+        self.stream.wait_stream(caller)
+        with torch.cuda.stream(self.stream):
+            st.set_inputs(pix, rows, cols, sample0, params, cot, seed)
+            if self.reset_graph is None:
+                st.reset()
+            else:
+                self.reset_graph.replay()
+            self._chunks = st.forward_pass(self._forward_chunk)
+        caller.wait_stream(self.stream)
+        return self._trips
+
+    def backward(self):
+        """The call's backward trips -> (film sums [B,3], grads by DIFF_FIELDS name, rays int),
+        the caller's own tensors."""
+        st = self.st
+        caller = torch.cuda.current_stream()
+        self.stream.wait_stream(caller)
+        with torch.cuda.stream(self.stream):
+            st.backward_pass(self._chunks, self._backward_chunk)
+            trips, rays, replays = st.counters.tolist()  # the call's last host read
+        self.host_reads += 1
+        caller.wait_stream(self.stream)
+        if replays != trips:
+            raise RuntimeError(f"gradient graph: the backward pass replayed {replays} of {trips} trips")
+        on_card = replays - self._eager_replays
+        _add_launches({key: n * on_card for key, n in self.calls["backward"].items()})
+        loop_cond.countdown_launches += self.chunks + on_card
+        return st.state["film"].clone(), {n: g.clone() for n, g in st.grads.items()}, rays
+
+    def close(self):
+        if self.chains:
+            torch.cuda.synchronize()
+        _destroy(self.chains)
+        self.bodies, self.calls, self.reset_graph, self.closed = {}, {}, None, True

@@ -293,6 +293,17 @@ def stream_state(pixel_ids, rows, cols, sample0) -> dict:
 STEP_KEYS = ("o", "d", "time", "bounce", "sample", "cur_sample", "throughput", "radiance", "film", "alive")
 
 
+def reset_stream_state(s):
+    """stream_state's values written in place into a state of static tensors (its pixels,
+    rows, cols and first samples, the inputs, are left as they are)."""
+    torch.arange(s["lane"].shape[0], out=s["lane"])
+    for key in ("o", "d", "time", "bounce", "sample", "cur_sample", "radiance", "film"):
+        s[key].zero_()
+    s["d"][:, 2] = 1.0
+    s["throughput"].fill_(1.0)
+    s["alive"].zero_()
+
+
 class StreamStages:
     """trace_film_streamed over static state: each stage's state at fixed addresses.
 
@@ -336,13 +347,7 @@ class StreamStages:
             s[key].copy_(val)
 
     def reset(self):
-        s = self.states[0]
-        torch.arange(s["lane"].shape[0], out=s["lane"])
-        for key in ("o", "d", "time", "bounce", "sample", "cur_sample", "radiance", "film"):
-            s[key].zero_()
-        s["d"][:, 2] = 1.0
-        s["throughput"].fill_(1.0)
-        s["alive"].zero_()
+        reset_stream_state(self.states[0])
         self.bank.zero_()
         self.rays.zero_()
         self.iters.zero_()
