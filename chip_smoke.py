@@ -726,6 +726,7 @@ def image_stats(mean):
 
 
 ROUTES = {}  # each compared render: the graph route's numbers and the eager route's
+RENDER_GRADS = {}  # render_grads by the graphs and by the eager route
 
 
 def render(label, compiled, cam, counters, kernel_ms, compare=True):
@@ -740,6 +741,7 @@ def render(label, compiled, cam, counters, kernel_ms, compare=True):
     zero_counts()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated() / 2**30  # scenes and the graphs kept on them
     _, mean, st = render_image(compiled, cam, seed=0, progress=False)
     torch.cuda.synchronize()
     launches = read_counts()
@@ -755,7 +757,8 @@ def render(label, compiled, cam, counters, kernel_ms, compare=True):
         f"instantiation), {st.paths} paths, {st.paths_per_s:.4e} paths/s, {st.rays} rays, "
         f"{st.rays_per_s:.4e} rays/s, {st.launches} launches, {st.iterations} wavefront iterations "
         f"({1e3 * st.wall_s / max(st.iterations, 1):.3f} ms each, {replay_ms:.3f} ms without the "
-        f"capture), peak memory {peak:.3f} GiB; {shares}; finite share {fin:.6f}, mean radiance {mu:.6f}")
+        f"capture), peak memory {peak:.3f} GiB ({held:.3f} GiB held before the call); {shares}; finite share "
+        f"{fin:.6f}, mean radiance {mu:.6f}")
     for k in counters:
         if launches[k] == 0:
             raise SystemExit(f"chip_smoke: the {label} render never launched {k}")
@@ -780,7 +783,7 @@ def render(label, compiled, cam, counters, kernel_ms, compare=True):
         ROUTES[label] = dict(
             graphs=dict(wall_s=st.wall_s, capture_s=st.capture_s, paths_per_s=st.paths_per_s,
                         iterations=st.iterations, ms_per_iteration=1e3 * st.wall_s / max(st.iterations, 1),
-                        replay_ms_per_iteration=replay_ms, peak_gib=peak, launches=st.launches),
+                        replay_ms_per_iteration=replay_ms, peak_gib=peak, held_gib=held, launches=st.launches),
             eager=dict(wall_s=st_e.wall_s, paths_per_s=st_e.paths_per_s, iterations=st_e.iterations,
                        ms_per_iteration=1e3 * st_e.wall_s / max(st_e.iterations, 1), peak_gib=peak_e),
             bit_equal=equal, rays=st.rays)
@@ -789,7 +792,35 @@ def render(label, compiled, cam, counters, kernel_ms, compare=True):
             raise SystemExit(f"chip_smoke: the {label} render differs between the graphs and the eager loop: "
                              f"rays {st.rays} vs {st_e.rays}, iterations {st.iterations} vs {st_e.iterations}, "
                              f"{int((diff > 0).any(-1).sum())} pixels differ, max {np.nanmax(diff):.3e}")
+        ROUTES[label]["second call"] = second_call(label, compiled, cam, counters)
     return mean, st, launches
+
+
+def second_call(label, compiled, cam, counters):
+    """render_image again at seed 1, the counts zeroed just before and read just after: it
+    replays the launch graphs kept on the compiled scene (capture_s 0, so no eager first
+    iteration either), and its film is the eager loop's at seed 1, bit for bit -> numbers."""
+    from tpupt_torch.render.renderer import plain_launches, render_image
+
+    torch.cuda.synchronize()
+    zero_counts()
+    _, mean, st = render_image(compiled, cam, seed=1, progress=False)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    with plain_launches():
+        _, mean_e, st_e = render_image(compiled, cam, seed=1, progress=False)
+    equal = (np.array_equal(mean, mean_e, equal_nan=True) and st.rays == st_e.rays
+             and st.iterations == st_e.iterations)
+    log(f"render {label}, second call (seed 1, kept graphs): {st.wall_s:.3f} s, capture {st.capture_s:.3f} s, "
+        f"{st.paths_per_s:.4e} paths/s, {st.iterations} iterations ({1e3 * st.wall_s / max(st.iterations, 1):.3f} "
+        f"ms each), launches {launches}; the eager loop at seed 1 {st_e.wall_s:.3f} s; film bit-equal, rays and "
+        f"iterations equal {equal}")
+    if st.capture_s != 0.0 or not equal or any(launches[k] == 0 for k in counters):
+        raise SystemExit(f"chip_smoke: the {label} render's second call captured ({st.capture_s} s), launched "
+                         f"{launches} or differs from the eager loop at seed 1 (equal {equal})")
+    return dict(wall_s=st.wall_s, capture_s=st.capture_s, paths_per_s=st.paths_per_s, iterations=st.iterations,
+                ms_per_iteration=1e3 * st.wall_s / max(st.iterations, 1), launches=launches,
+                eager_wall_s=st_e.wall_s, eager_paths_per_s=st_e.paths_per_s, bit_equal=equal)
 
 
 def compare_small(label, build, dev, tol_mean=0.01, bvh=None):
@@ -1052,6 +1083,136 @@ def compare_grads(label, build, dev, kernel, bvh=None):
                 eager={k: eager[3][k] for k in ("wall_s", "host_reads", "peak_gib")})
 
 
+def render_grads_call(compiled, cam, spp, route, seed=0):
+    """One render_grads call of every pixel by `route` ("graphs": the CUDA route; "eager":
+    plain_grads), the counts zeroed just before and read just after -> (radiance, grads,
+    rays, numbers); the graphs' numbers (trips, chunks, host reads, capture) from the graphs
+    the call kept on the compiled scene."""
+    from tpupt_torch.render.diff import plain_grads, render_grads
+
+    ids = np.arange(cam.image_width * cam.image_height, dtype=np.int32)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated() / 2**30
+    zero_counts()
+    t0 = time.perf_counter()
+    with plain_grads() if route == "eager" else contextlib.nullcontext():
+        radiance, grads, rays = render_grads(compiled, cam, ids, spp, seed=seed, return_stats=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    out = dict(wall_s=wall, rays=rays, rays_per_s=rays / wall, lanes=len(ids) * spp,
+               peak_gib=torch.cuda.max_memory_allocated() / 2**30, held_gib=held, counts=read_counts())
+    if route != "eager":
+        (graphs,) = compiled.__dict__["_radiance_graphs"].values()
+        out.update(trips=graphs.trips, chunks=graphs.chunks, host_reads=graphs.host_reads,
+                   capture_s=graphs.capture_s)
+    return radiance, grads, rays, out
+
+
+def eager_radiance_reads(trips, max_depth, segment=8):
+    """The eager masked scan's host reads, counted from its code (render/diff.py
+    trace_radiance_scan): one a segment it tests (the first dead one too), one for the rays."""
+    tested = trips // segment + 1 if trips < max_depth else -(-max_depth // segment)
+    return tested + 1
+
+
+def hold_radiance_routes(label, graphs, eager, max_depth):
+    """render_grads by the graphs (radiance, grads, rays, numbers) against the eager route:
+    radiance bit-equal, rays equal, gradients within GRAPH_REL_L1, every kernel launched as
+    often by both routes, once a trip forward and once in its replay, K5's gate and
+    countdown once a trip and a chunk, host reads = chunks + 1 -> (bit-equal, relative L1)."""
+    (r_g, g_g, rays_g, n_g), (r_e, g_e, rays_e, n_e) = graphs, eager
+    equal = bool(torch.equal(r_g.view(torch.int32), r_e.view(torch.int32))) and rays_g == rays_e
+    errs = rel_l1(g_g, g_e)
+    trips, chunks = n_g["trips"], n_g["chunks"]
+    n_e["host_reads_counted"] = eager_radiance_reads(trips, max_depth)
+    kernels = {k: (n_g["counts"][k], n_e["counts"][k]) for k in ("K1", "K2", "K3", "K4") if n_g["counts"][k]}
+    log(f"render_grads [{label}] graphs against the eager route: radiance bit-equal and rays equal {equal} (rays "
+        f"{rays_g} / {rays_e}); gradients' relative L1 by field {errs} (limit {GRAPH_REL_L1}); {trips} trips, "
+        f"launches graphs / eager {kernels}, gate {n_g['counts']['K5 gate']}, countdown "
+        f"{n_g['counts']['K5 countdown']}; host reads {n_g['host_reads']} (chunks {chunks} + 1) against the eager "
+        f"route's {n_e['host_reads_counted']} (counted from its code)")
+    if not equal:
+        raise SystemExit(f"chip_smoke: render_grads [{label}] differs between the graphs and the eager route: "
+                         f"{int((r_g != r_e).any(-1).sum())} pixels, rays {rays_g} vs {rays_e}")
+    if any(e > GRAPH_REL_L1 for e in errs.values()):
+        raise SystemExit(f"chip_smoke: render_grads [{label}] gradients differ between the routes: {errs}")
+    if not kernels or any(a != b or a != 2 * trips for a, b in kernels.values()):
+        raise SystemExit(f"chip_smoke: render_grads [{label}]: every kernel must launch once a trip forward and "
+                         f"once in its replay by both routes: {kernels}, {trips} trips")
+    conds = (n_g["counts"]["K5 gate"], n_g["counts"]["K5 countdown"])
+    if n_g["host_reads"] != chunks + 1 or conds != (trips + chunks,) * 2:
+        raise SystemExit(f"chip_smoke: render_grads [{label}]: host reads {n_g['host_reads']}, chunks {chunks}, "
+                         f"gate and countdown {conds}, trips {trips}")
+    return equal, errs
+
+
+def render_grads_run(dev):
+    """render_grads of the Cornell box at 600x600, 1 spp (360000 lanes, grads 600's count),
+    max_depth 50, segments of 8: by the graphs (a first call that captures, then a replayed
+    call at seed 1) and by the eager route at seed 1, held against each other -> numbers."""
+    from tpupt_torch.render.diff import DIFF_FIELDS
+    from tpupt_torch.scenes import cornell_box_scene
+
+    scene, cam = cornell_box_scene(600, 1)
+    compiled = scene.compile(device=dev)
+    first = render_grads_call(compiled, cam, 1, "graphs", seed=0)
+    graphs = render_grads_call(compiled, cam, 1, "graphs", seed=1)
+    eager = render_grads_call(compiled, cam, 1, "eager", seed=1)
+    if graphs[3]["capture_s"] != 0.0:
+        raise SystemExit("chip_smoke: render_grads captured again on a second call of the same configuration")
+    for route, (radiance, grads, rays, n) in (("graphs, first call", first), ("graphs, seed 1", graphs),
+                                              ("eager, seed 1", eager)):
+        fin = float(torch.isfinite(radiance).all(dim=-1).float().mean())
+        finite = all(bool(torch.isfinite(grads[k]).all()) for k in DIFF_FIELDS)
+        n.update(radiance_finite_share=fin, grads_finite=finite,
+                 grad_abs_sum={k: float(grads[k].abs().sum()) for k in DIFF_FIELDS})
+        log(f"render_grads [cornell 600] {route}: 600x600 1 spp max_depth {cam.max_depth}, {n['lanes']} lanes: "
+            f"{n['wall_s']:.4f} s, {rays} forward rays, {n['rays_per_s']:.4e} rays/s fwd+bwd, trips "
+            f"{n.get('trips', 'as the graphs')}, capture {n.get('capture_s', 0.0):.4f} s, host reads "
+            f"{n.get('host_reads', 'see below')}, peak memory {n['peak_gib']:.3f} GiB ({n['held_gib']:.3f} held "
+            f"before the call), launches {n['counts']}, "
+            f"radiance finite share {fin:.6f}, gradients finite {finite}")
+        if fin < 1.0 or not finite or radiance.shape != (360000, 3) or not n["grad_abs_sum"]["tex_rgb"] > 0.0:
+            raise SystemExit(f"chip_smoke: render_grads [cornell 600] ({route}) is not finite or zero")
+    equal, errs = hold_radiance_routes("cornell 600", graphs, eager, cam.max_depth)
+    g, e = graphs[3], eager[3]
+    log(f"render_grads [cornell 600] graphs / eager: fwd+bwd rays/s x{g['rays_per_s'] / e['rays_per_s']:.3f}, "
+        f"wall {g['wall_s']:.4f} / {e['wall_s']:.4f} s, peak GiB {g['peak_gib']:.3f} / {e['peak_gib']:.3f}; the "
+        f"first call {first[3]['wall_s']:.4f} s with {first[3]['capture_s']:.4f} s capture")
+    return dict(graphs=g, graphs_first_call=first[3], eager=e, radiance_bit_equal=equal, rel_l1=errs)
+
+
+def compare_render_grads(label, build, dev, kernel, bvh=None):
+    """render_grads of every pixel on the card by the graphs and by the eager route, held
+    against each other (hold_radiance_routes) and against the CPU (plain kernels): every
+    gradient field within GRAD_REL_L1 (relative L1), 95% of radiances within rtol 1e-3 /
+    atol 1e-4 -> numbers."""
+    from tpupt_torch.render.diff import render_grads
+
+    scene, cam = build()
+    spp = cam.samples_per_pixel
+    ids = np.arange(cam.image_width * cam.image_height, dtype=np.int32)
+    r_cpu, g_cpu = render_grads(scene.compile(device="cpu", bvh=bvh), cam, ids, spp, seed=0)
+    compiled = scene.compile(device=dev, bvh=bvh)
+    graphs = render_grads_call(compiled, cam, spp, "graphs")
+    eager = render_grads_call(compiled, cam, spp, "eager")
+    equal, route_errs = hold_radiance_routes(label, graphs, eager, cam.max_depth)
+    r_gpu, g_gpu, _, n = graphs
+    close = float(np.isclose(r_gpu.cpu().numpy(), r_cpu.numpy(), rtol=1e-3, atol=1e-4).all(-1).mean())
+    errs = rel_l1({k: v.cpu() for k, v in g_gpu.items()}, g_cpu)
+    log(f"render_grads [{label}] {cam.image_width}x{cam.image_height} {spp} spp max_depth {cam.max_depth}, cuda "
+        f"(graphs) vs cpu: {close:.4f} of radiances within rtol 1e-3 / atol 1e-4; relative L1 error by field {errs} "
+        f"(limit {GRAD_REL_L1}); {kernel} launches {n['counts'][kernel]} ({n['trips']} trips)")
+    if n["counts"][kernel] != 2 * n["trips"] or close < 0.95 or any(e > GRAD_REL_L1 for e in errs.values()):
+        raise SystemExit(f"chip_smoke: render_grads [{label}] on the card disagrees with the cpu's or did not "
+                         f"launch {kernel} in every trip")
+    return dict(close=close, rel_l1=errs, radiance_bit_equal_to_eager=equal, rel_l1_to_eager=route_errs,
+                trips=n["trips"], counts=n["counts"],
+                graphs={k: n[k] for k in ("wall_s", "capture_s", "host_reads", "chunks", "peak_gib")},
+                eager={k: eager[3][k] for k in ("wall_s", "host_reads_counted", "peak_gib")})
+
+
 # ---------------------------------------------------------------------------
 # image fixtures and the sharded phases
 # ---------------------------------------------------------------------------
@@ -1132,18 +1293,80 @@ def nccl_world_of_one(compiled, cam, m_ref, st_ref):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = read_counts()
+        grads = sharded_grads_routes(mesh)
     finally:
         dist.destroy_process_group()
     equal = np.array_equal(mean, m_ref, equal_nan=True) and st.rays == st_ref.rays
     log(f"sharded [nccl, world of 1] cornell {cam.image_width}x{cam.image_height} {cam.samples_per_pixel} spp "
         f"max_depth {cam.max_depth}: {wall:.3f} s (the communicator's set-up before it, {setup:.3f} s), "
         f"{st.paths_per_s:.4e} paths/s, {st.iterations} iterations, "
-        f"K1 {launches['K1']} launches; bit-equal to the render without a mesh: {equal} (rays {st.rays} vs "
-        f"{st_ref.rays}); {card_line()}")
+        f"K1 {launches['K1']} launches, capture {st.capture_s:.3f} s (the graphs kept from the render without a "
+        f"mesh); bit-equal to the render without a mesh: {equal} (rays {st.rays} vs {st_ref.rays}); {card_line()}")
     if not equal or launches["K1"] == 0:
         raise SystemExit("chip_smoke: the NCCL world of 1 differs from the render without a mesh")
     return {"cornell": dict(wall_s=wall, paths_per_s=st.paths_per_s, rays=st.rays, iterations=st.iterations,
-                            launches=launches, bit_equal=equal, communicator_setup_s=setup)}
+                            launches=launches, bit_equal=equal, communicator_setup_s=setup, capture_s=st.capture_s),
+            "render_grads_sharded box": grads}
+
+
+@contextlib.contextmanager
+def counted_all_reduces():
+    """Within the block, every Mesh.all_reduce is counted into the yielded list."""
+    from tpupt_torch.parallel import sharding
+
+    calls, reduce = [], sharding.Mesh.all_reduce
+
+    def counted(self, tensor, async_op=False):
+        calls.append(tensor.numel())
+        return reduce(self, tensor, async_op=async_op)
+
+    sharding.Mesh.all_reduce = counted
+    try:
+        yield calls
+    finally:
+        sharding.Mesh.all_reduce = reduce
+
+
+def sharded_grads_routes(mesh):
+    """render_grads_sharded of the box (16x16, 8 spp, max_depth 12) over `mesh`, by the graphs
+    (a first call, then a replayed one) and by the eager route, the counts zeroed just before
+    each and read just after: films bit-equal, gradients within GRAPH_REL_L1, one all-reduce
+    a segment and one for the film on each route -> numbers."""
+    from tpupt_torch.parallel.sharding import render_grads_sharded
+    from tpupt_torch.render.diff import SEGMENT, plain_grads
+
+    scene, cam = grad_box_scene(16, 8)
+    compiled = scene.compile(device=mesh.device)
+    ids = np.arange(256, dtype=np.int32)
+    runs = {}
+    for route in ("graphs", "graphs, replay", "eager"):
+        torch.cuda.synchronize()
+        zero_counts()
+        t0 = time.perf_counter()
+        with counted_all_reduces() as calls, plain_grads() if route == "eager" else contextlib.nullcontext():
+            film, grads = render_grads_sharded(compiled, cam, ids, ids // 16, ids % 16, spp=8, mesh=mesh)
+        torch.cuda.synchronize()
+        runs[route] = dict(film=film, grads=grads, wall_s=time.perf_counter() - t0, collectives=len(calls),
+                           counts=read_counts())
+    (graphs,) = compiled.data.__dict__["_radiance_graphs"].values()
+    g, r, e = runs["graphs"], runs["graphs, replay"], runs["eager"]
+    n_seg = -(-cam.max_depth // SEGMENT)
+    equal = bool(torch.equal(g["film"].view(torch.int32), e["film"].view(torch.int32))
+                 and torch.equal(r["film"], g["film"]))
+    errs = {k: max(a, b) for (k, a), b in zip(rel_l1(g["grads"], e["grads"]).items(),
+                                               rel_l1(r["grads"], e["grads"]).values())}
+    log(f"sharded [world of {mesh.size}] render_grads_sharded (box 16x16, 8 spp) graphs against the eager route: film bit-equal {equal}, gradients' relative L1 {errs} (limit "
+        f"{GRAPH_REL_L1}); all-reduces graphs / replay / eager {g['collectives']} / {r['collectives']} / "
+        f"{e['collectives']} ({n_seg} segments + the film); wall {g['wall_s']:.4f} / {r['wall_s']:.4f} / "
+        f"{e['wall_s']:.4f} s, the replay's capture {graphs.capture_s:.4f} s, K1 {r['counts']['K1']} launches "
+        f"in {graphs.trips} trips")
+    if (not equal or any(x > GRAPH_REL_L1 for x in errs.values()) or graphs.capture_s != 0.0
+            or {g["collectives"], r["collectives"], e["collectives"]} != {n_seg + 1}
+            or r["counts"]["K1"] != 2 * graphs.trips):
+        raise SystemExit("chip_smoke: render_grads_sharded by the graphs differs from its eager route, captured "
+                         "again, or issued another count of collectives")
+    return dict(film_bit_equal=equal, rel_l1=errs, collectives=g["collectives"], trips=graphs.trips,
+                launches=r["counts"], **{f"{route} wall_s": v["wall_s"] for route, v in runs.items()})
 
 
 def sharded_worker(rank, world, store, out, device, width, spp):
@@ -1175,9 +1398,12 @@ def sharded_worker(rank, world, store, out, device, width, spp):
                               iterations=st.iterations, launches=read_counts(), mean=mean)
         scene, cam = grad_box_scene(16, 8)
         ids = np.arange(256, dtype=np.int32)
-        film, grads = render_grads_sharded(scene.compile(device=device), cam, ids, ids // 16, ids % 16,
-                                           spp=8, mesh=mesh)
+        zero_counts()
+        with counted_all_reduces() as calls:
+            film, grads = render_grads_sharded(scene.compile(device=device), cam, ids, ids // 16, ids % 16,
+                                               spp=8, mesh=mesh)
         res["grads"] = (film.cpu().numpy(), {k: v.cpu().numpy() for k, v in grads.items()})
+        res["grads_collectives"] = (len(calls), read_counts())
         scene, cam = cornell_box_scene(width, 8)
         compiled = scene.compile(device=device)
         ids = np.arange(width * width, dtype=np.int32)
@@ -1254,7 +1480,12 @@ def gloo_two_ranks(dev, m_cornell, st_cornell, kernel_ms, width=600):
         row["one rank"] = dict(wall_s=st1.wall_s, paths_per_s=st1.paths_per_s, iterations=st1.iterations)
         summary[label] = row
     errs = []
-    for res in ranks:
+    n_seg = -(-cam.max_depth // 8)
+    for r, res in enumerate(ranks):
+        n_calls, counts = res["grads_collectives"]
+        if n_calls != n_seg + 1 or counts["K5 countdown"] == 0:
+            raise SystemExit(f"chip_smoke: two-rank render_grads_sharded, rank {r}: {n_calls} all-reduces (want "
+                             f"{n_seg} segments + the film), launches {counts}: not the graph route")
         film, grads = res["grads"]
         errs.append(float(np.abs(film - rad1.cpu().numpy()).max()))
         for k, ref in g1.items():
@@ -1268,7 +1499,9 @@ def gloo_two_ranks(dev, m_cornell, st_cornell, kernel_ms, width=600):
         f"(cornell {width}x{width}, 8 spp): {pods}; the phase {wall_all:.1f} s with the ranks' start-up")
     if not all(p["close"] and p["rays"] == p["flat_rays"] for p in pods):
         raise SystemExit("chip_smoke: the pod mesh differs from the flat mesh")
-    summary["grads box"] = dict(film_max_abs_diff=max(errs))
+    summary["grads box"] = dict(film_max_abs_diff=max(errs), **{
+        f"rank {r}": dict(collectives=res["grads_collectives"][0], launches=res["grads_collectives"][1])
+        for r, res in enumerate(ranks)})
     summary["pod vs flat"] = pods
     summary["phase_wall_s"] = wall_all
     return {"gloo, 2 ranks on cuda:0": summary}
@@ -1389,6 +1622,7 @@ def main(argv=None) -> int:
     log(json.dumps({"grads": grads, "profile": GRAD_PROFILE or None, "card": card}))
     log(json.dumps({"sharded": sharded, "card": card}))
     log(json.dumps({"routes": ROUTES, "card": card}))
+    log(json.dumps({"render_grads": RENDER_GRADS, "card": card}))
     if args.profile:
         log(json.dumps({"profiles": PROFILES, "card": card}))
     log(card)
@@ -1605,6 +1839,17 @@ def run(args, dev, hit_kernel, render_image, cornell_box_scene, balls_scene, eve
     grads["bvh mesh, cuda vs cpu"] = compare_grads(
         "mesh (5000 triangles, BVH route)", lambda: small_mesh_scene(16, 8), dev, "K4", bvh=True)
 
+    # ---- render_grads: the masked scan and its replays as graphs, and by the eager route ----
+    phase("render_grads, graphs and eager route")
+    RENDER_GRADS["cornell 600"] = render_grads_run(dev)
+    RENDER_GRADS["box, cuda vs cpu"] = compare_render_grads("box", lambda: grad_box_scene(16, 8), dev, "K1")
+    RENDER_GRADS["mesh, cuda vs cpu"] = compare_render_grads(
+        "mesh (5000 triangles, flat cluster route)", lambda: small_mesh_scene(16, 8), dev, "K2")
+    RENDER_GRADS["two-level mesh, cuda vs cpu"] = compare_render_grads(
+        "mesh (60000 random triangles, two-level cluster route)", lambda: random_mesh_scene(16, 8), dev, "K3")
+    RENDER_GRADS["bvh mesh, cuda vs cpu"] = compare_render_grads(
+        "mesh (5000 triangles, BVH route)", lambda: small_mesh_scene(16, 8), dev, "K4", bvh=True)
+
     # ---- the sharded phases: a world of 1 over NCCL, then two gloo ranks on the one card ----
     phase("sharded phases")
     sharded = {"nccl, world of 1": nccl_world_of_one(c_compiled, ccam, m_cornell, st_cornell)}
@@ -1676,6 +1921,10 @@ def run(args, dev, hit_kernel, render_image, cornell_box_scene, balls_scene, eve
             if g["launches_forward"].get(k):
                 paths[f"{label} forward"] = g["launches_forward"][k]
                 paths[f"{label} replay"] = g["launches_replay"][k]
+        for label, g in RENDER_GRADS.items():  # render_grads by the graphs: forward trips and replays
+            counts = g.get("counts") or g["graphs"]["counts"]
+            if counts.get(k):
+                paths[f"render_grads {label}"] = counts[k]
         kernels[-1]["launches_by_path"] = paths
         if k == "K4":  # both shapes, and K2 / K3 on the same batches; the matmul sweep beside K2
             kernels[-1].update(shapes={shape: dict(v, launches=paths[f"{shape} bvh"])

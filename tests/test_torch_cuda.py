@@ -1161,3 +1161,177 @@ def test_grad_conditions_bit_equal_to_plain(cuda, n):
         ref = loop_cond.grad_countdown_plain(index_ref, chunk, replays_ref, bump)
         bad += int(out.tolist() != ref.tolist() or int(index) != int(index_ref) or int(replays) != int(replays_ref))
     assert bad == 0
+
+
+# ---- kept launch graphs, render_grads and segmented_film_vjp as CUDA graphs ----
+
+
+@pytest.mark.parametrize("which", ["K1", "K3"])
+def test_render_second_call_replays_kept_graphs(cuda, which):
+    """A second render_image call of one compiled scene, with another seed, replays the
+    graphs kept from the first (capture_s 0, no eager iteration: every kernel launch is
+    counted on the card) and equals the eager loop at that seed, bit for bit."""
+    from tpupt_torch.ops import loop_cond
+    from tpupt_torch.render import renderer as R
+
+    compiled, cam = _graph_scene(which, cuda)
+    count = {"K1": lambda: hit_kernel.launches, "K3": lambda: tri_kernel.launches["two_level"]}[which]
+    _, _, st1 = render_image(compiled, cam, seed=0, progress=False)
+    before, conds = count(), loop_cond.launches
+    _, m2, st2 = render_image(compiled, cam, seed=1, progress=False)
+    launched, conds = count() - before, loop_cond.launches - conds
+    with R.plain_launches():
+        _, m_e, st_e = render_image(compiled, cam, seed=1, progress=False)
+    assert st1.capture_s > 0 and st2.capture_s == 0.0
+    np.testing.assert_array_equal(m2, m_e)
+    assert (st2.rays, st2.iterations) == (st_e.rays, st_e.iterations)
+    assert launched == st2.iterations > 0 and conds >= st2.iterations
+    assert len(compiled._launch_graphs._launches) == 1
+
+
+def test_render_recaptures_after_a_geometry_edit(cuda):
+    """An edit in place of a geometry tensor between two calls makes the launch graphs anew
+    (the kept ones would read K1's old tables), and the call equals the eager loop on the
+    edited scene; so does a replaced parameter tensor, which the render's graphs read where
+    it lies."""
+    from tpupt_torch.render import renderer as R
+
+    compiled, cam = _graph_scene("K1", cuda)
+    render_image(compiled, cam, progress=False)
+    with torch.no_grad():
+        compiled.data.sph_r.mul_(1.25)
+    _, m, st = render_image(compiled, cam, progress=False)
+    with R.plain_launches():
+        _, m_e, _ = render_image(compiled, cam, progress=False)
+    assert st.capture_s > 0
+    np.testing.assert_array_equal(m, m_e)
+    compiled.data.tex_rgb = compiled.data.tex_rgb * 0.5
+    _, m, st = render_image(compiled, cam, progress=False)
+    with R.plain_launches():
+        _, m_e, _ = render_image(compiled, cam, progress=False)
+    assert st.capture_s > 0
+    np.testing.assert_array_equal(m, m_e)
+
+
+def _render_grads_by_route(compiled, cam, seed=0, route="graphs", spp=4):
+    """render_grads of every pixel by one route -> (radiance, grads, rays, launches by kernel,
+    the kept graphs of the call (graph route) or None)."""
+    from tpupt_torch.render import diff as D
+
+    ids = np.arange(cam.image_width * cam.image_height, dtype=np.int32)
+    before = _grad_counts()
+    with D.plain_grads() if route == "eager" else _nullcontext():
+        radiance, grads, rays = D.render_grads(compiled, cam, ids, spp, seed=seed, return_stats=True)
+    torch.cuda.synchronize()
+    after = _grad_counts()
+    graphs = None if route == "eager" else next(iter(compiled._radiance_graphs.values()))
+    return radiance, grads, rays, {k: after[k] - before[k] for k in before}, graphs
+
+
+@pytest.mark.parametrize("which", ["box", "mesh", "two_level", "bvh"])
+def test_render_grads_graph_route_matches_eager_route(cuda, which):
+    """render_grads through the graphs against plain_grads() on the card: radiance bit-equal,
+    rays equal, gradients within relative L1 1e-6; the kernel launched once a trip forward
+    and once in its replay by both routes; the gate and the countdown once a trip and a
+    chunk; one host read a chunk and one more."""
+    compiled, cam = _grad_case(which, cuda)
+    r_g, g_g, rays_g, n_g, graphs = _render_grads_by_route(compiled, cam)
+    r_e, g_e, rays_e, n_e, _ = _render_grads_by_route(compiled, cam, route="eager")
+    assert torch.equal(r_g.view(torch.int32), r_e.view(torch.int32)) and rays_g == rays_e
+    _assert_grads_rel_l1(g_g, g_e)
+    kernel = {"mesh": "K2", "two_level": "K3", "bvh": "K4"}.get(which, "K1")
+    trips = graphs.trips
+    assert 0 < trips <= cam.max_depth and n_g[kernel] == n_e[kernel] == 2 * trips
+    assert n_g["gate"] == n_g["countdown"] == trips + graphs.chunks
+    assert graphs.host_reads == graphs.chunks + 1 and graphs.capture_s > 0
+    assert not any(v.data_ptr() == w.data_ptr() for v in g_g.values() for w in g_e.values())
+
+
+def test_render_grads_second_call_replays(cuda, monkeypatch):
+    """A second render_grads call with another seed and other parameter values replays the
+    kept graphs (capture_s 0) and equals the eager route at that seed; with chunks of one
+    segment, every chunk's rows go out to a store and come back."""
+    from tpupt_torch.render import diff as D
+
+    monkeypatch.setattr(D, "STAGING_BYTES", 1)
+    compiled, cam = _grad_case("cornell", cuda)
+    _render_grads_by_route(compiled, cam)
+    with torch.no_grad():
+        compiled.data.tex_rgb.mul_(0.75)
+    r2, g2, rays2, n2, graphs = _render_grads_by_route(compiled, cam, seed=7)
+    r_e, g_e, rays_e, _, _ = _render_grads_by_route(compiled, cam, seed=7, route="eager")
+    assert graphs.capture_s == 0.0 and graphs.chunks == -(-graphs.trips // D.SEGMENT) >= 2
+    assert torch.equal(r2.view(torch.int32), r_e.view(torch.int32)) and rays2 == rays_e
+    _assert_grads_rel_l1(g2, g_e)
+    assert n2["K1"] == 2 * graphs.trips and len(compiled._radiance_graphs) == 1
+
+
+@pytest.mark.parametrize("part", ["forward", "backward"])
+def test_render_grads_capture_failure_raises(cuda, monkeypatch, part):
+    """A host read planted in a trip under capture makes render_grads raise, naming the trip
+    being captured; the eager route does not take over, and the next call captures anew."""
+    from tpupt_torch.render import diff as D
+
+    trip = getattr(D.RadianceScanStages, f"{part}_trip")
+
+    def planted(self):
+        if torch.cuda.is_current_stream_capturing():
+            int(self.rays)  # a host read: illegal while the stream is captured
+        trip(self)
+
+    monkeypatch.setattr(D.RadianceScanStages, f"{part}_trip", planted)
+    compiled, cam = _grad_case("box", cuda)
+    with pytest.raises(RuntimeError, match=f"capturing the {part} trip"):
+        D.render_grads(compiled, cam, np.arange(cam.image_width * cam.image_height, dtype=np.int32), 4)
+    monkeypatch.setattr(D.RadianceScanStages, f"{part}_trip", trip)
+    r, _, rays, _, graphs = _render_grads_by_route(compiled, cam)
+    r_e, _, rays_e, _, _ = _render_grads_by_route(compiled, cam, route="eager")
+    assert len(compiled._radiance_graphs) == 1 and not graphs.closed
+    assert graphs.capture_s > 0 and torch.equal(r.view(torch.int32), r_e.view(torch.int32)) and rays == rays_e
+
+
+def test_render_grads_sharded_nccl_world_of_one(cuda):
+    """render_grads_sharded over a world of 1 over NCCL, by the graphs and by the eager route:
+    film bit-equal, gradients within relative L1 1e-6; each route issues one all-reduce a
+    segment and one for the film; a second graph call replays."""
+    import socket
+
+    import torch.distributed as dist
+
+    from tpupt_torch.parallel import sharding as S
+    from tpupt_torch.render import diff as D
+
+    compiled, cam = _grad_case("box", cuda)
+    ids = np.arange(cam.image_width * cam.image_height, dtype=np.int32)
+    calls = []
+    reduce = S.Mesh.all_reduce
+
+    def counted(self, tensor, async_op=False):
+        calls.append(tensor.numel())
+        return reduce(self, tensor, async_op=async_op)
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}", world_size=1, rank=0)
+    try:
+        mesh = S.make_mesh(1, device="cuda:0")
+        S.Mesh.all_reduce = counted
+        runs = {}
+        for route in ("graphs", "graphs again", "eager"):
+            calls.clear()
+            with D.plain_grads() if route == "eager" else _nullcontext():
+                runs[route] = S.render_grads_sharded(compiled, cam, ids, ids // cam.image_width,
+                                                     ids % cam.image_width, spp=8, mesh=mesh) + (len(calls),)
+    finally:
+        S.Mesh.all_reduce = reduce
+        dist.destroy_process_group()
+    n_seg = -(-cam.max_depth // D.SEGMENT)
+    (f_g, g_g, c_g), (f_2, g_2, c_2), (f_e, g_e, c_e) = runs["graphs"], runs["graphs again"], runs["eager"]
+    assert c_g == c_2 == c_e == n_seg + 1
+    assert torch.equal(f_g.view(torch.int32), f_e.view(torch.int32)) and torch.equal(f_2, f_g)
+    _assert_grads_rel_l1(g_g, g_e)
+    _assert_grads_rel_l1(g_2, g_e)
+    (graphs,) = compiled.data._radiance_graphs.values()
+    assert graphs.capture_s == 0.0 and graphs.trips > 0

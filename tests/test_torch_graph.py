@@ -75,8 +75,8 @@ def _runs(case):
     args = (sd, c, pix, rows, cols, sample0, r * k, 0, k, depth, compiled.has_lights)
     log_e, log_s = [], []
     eager = trace_film_streamed(*args, log=log_e)
-    st = StreamStages(sd, c, pix.shape[0], r * k, 0, k, depth, compiled.has_lights, CPU)
-    st.set_inputs(pix, rows, cols, sample0)
+    st = StreamStages(sd, c, pix.shape[0], r * k, k, depth, compiled.has_lights, CPU)
+    st.set_inputs(pix, rows, cols, sample0, 0)
     stages = st.run(log=log_s)
     return (*eager, log_e), (stages[0].clone(), *stages[1:], log_s), st.thresholds
 
@@ -120,8 +120,9 @@ def test_stage_runner_matches_reference_chunk_film():
     ts, tcam = TSCENES[3][1](width, r * k)
     tc = ts.compile(device=CPU)
     pix = torch.from_numpy(ids).repeat(r)
-    st = StreamStages(tc.data, tcam.init(CPU), pix.shape[0], r * k, 0, k, depth, tc.has_lights, CPU)
-    st.set_inputs(pix, pix // width, pix % width, torch.from_numpy(R.lane_first_samples(npix, npix, r, k, 0, r * k)))
+    st = StreamStages(tc.data, tcam.init(CPU), pix.shape[0], r * k, k, depth, tc.has_lights, CPU)
+    st.set_inputs(pix, pix // width, pix % width, torch.from_numpy(R.lane_first_samples(npix, npix, r, k, 0, r * k)),
+                  0)
     bank, rays, iters = st.run()
     film_t = bank.reshape(r, npix, 3).sum(dim=0).numpy()
     film_j = np.asarray(jax.device_get(film_j))
@@ -184,11 +185,33 @@ def test_stage_runner_thresholds_and_reset():
     compiled = scene.compile(device=CPU)
     npix = width * cam.image_height
     pix = torch.arange(npix, dtype=torch.int32).repeat(r)
-    st = StreamStages(compiled.data, cam.init(CPU), pix.shape[0], r * k, 0, k, depth, compiled.has_lights, CPU)
+    st = StreamStages(compiled.data, cam.init(CPU), pix.shape[0], r * k, k, depth, compiled.has_lights, CPU)
     assert st.thresholds == compaction_thresholds(pix.shape[0])
     assert [s["alive"].shape[0] for s in st.states] == [pix.shape[0]] + st.thresholds[:-1]
-    st.set_inputs(pix, pix // width, pix % width, torch.from_numpy(R.lane_first_samples(npix, npix, r, k, 0, r * k)))
+    st.set_inputs(pix, pix // width, pix % width, torch.from_numpy(R.lane_first_samples(npix, npix, r, k, 0, r * k)),
+                  0)
     for _ in range(2):
+        film, rays, iters = st.run()
+        assert torch.equal(film.view(torch.int32), film_e.view(torch.int32)) and (rays, iters) == (rays_e, it_e)
+
+
+def test_one_stage_runner_at_two_seeds():
+    """One StreamStages run at two seeds and two cameras (seed and camera are inputs, as the
+    kept graphs take them): each run bit-equal to trace_film_streamed at its seed and camera."""
+    build, width, r, k, depth = CASES["cornell"]
+    scene, cam = build(width, r * k)
+    compiled = scene.compile(device=CPU)
+    sd = compiled.data
+    npix = width * cam.image_height
+    pix = torch.arange(npix, dtype=torch.int32).repeat(r)
+    sample0 = torch.from_numpy(R.lane_first_samples(npix, npix, r, k, 0, r * k))
+    st = StreamStages(sd, cam.init(CPU), pix.shape[0], r * k, k, depth, compiled.has_lights, CPU)
+    for seed, vfov in ((7, cam.vfov), (0, cam.vfov + 5.0)):
+        cam.vfov = vfov
+        c = cam.init(CPU)
+        film_e, rays_e, it_e = trace_film_streamed(sd, c, pix, pix // width, pix % width, sample0, r * k, seed, k,
+                                                   depth, compiled.has_lights)
+        st.set_inputs(pix, pix // width, pix % width, sample0, seed, c)
         film, rays, iters = st.run()
         assert torch.equal(film.view(torch.int32), film_e.view(torch.int32)) and (rays, iters) == (rays_e, it_e)
 

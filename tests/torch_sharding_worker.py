@@ -16,7 +16,7 @@ import torch.distributed as dist
 from tpupt_torch.parallel.multihost import initialize_distributed, make_pod_mesh, render_block_pod
 from tpupt_torch.parallel.sharding import make_mesh, render_block_sharded, render_grads_sharded
 from tpupt_torch.render.camera import Camera
-from tpupt_torch.render.diff import init_params, segmented_film_vjp
+from tpupt_torch.render.diff import SEGMENT, RadianceScanStages, init_params, segmented_film_vjp
 from tpupt_torch.render.renderer import render_image
 from tpupt_torch.scene.builder import Diffuse, Light, Scene
 from tpupt_torch.scenes import cornell_box_scene
@@ -121,6 +121,43 @@ def _run_2(mesh, out, rank):
     radiance, grads = dead_rank_vjp(scene.compile(device="cpu"), dcam, pix, samples, mesh=mesh)
     return {"render": (mean, st.rays, st.paths, st.launches, st.iterations),
             "dead": (radiance.numpy(), {k: v.numpy() for k, v in grads.items()})}
+
+
+class CountingMesh:
+    """A mesh that counts the all-reduces issued through it."""
+
+    def __init__(self, mesh):
+        self.mesh, self.calls = mesh, 0
+
+    def all_reduce(self, tensor, async_op=False):
+        self.calls += 1
+        return self.mesh.all_reduce(tensor, async_op=async_op)
+
+
+def radiance_runner_worker(rank, world, store, out):
+    """A rank of tests/test_torch_radiance_graph.py's mesh check on dead_rank_lanes: the eager
+    segmented_film_vjp and the stage runner's pass (RadianceScanStages.run with the mesh,
+    chunks of one segment) over the same mesh, each counting its collectives."""
+    torch.set_num_threads(1)
+    initialize_distributed(f"file://{store}", num_processes=world, process_id=rank, backend="gloo",
+                           device="cpu")
+    try:
+        mesh = CountingMesh(make_mesh(world, device="cpu"))
+        scene, cam, pix, samples = dead_rank_lanes(rank)
+        compiled = scene.compile(device="cpu")
+        radiance, grads = dead_rank_vjp(compiled, cam, pix, samples, mesh=mesh)
+        eager_calls, mesh.calls = mesh.calls, 0
+        sd, w = compiled.data, cam.image_width
+        st = RadianceScanStages(sd, cam.init("cpu"), pix.shape[0], cam.max_depth, compiled.has_lights, "cpu",
+                                chunk=SEGMENT)
+        st.set_inputs(pix, pix // w, pix % w, samples, init_params(sd), torch.full((pix.shape[0], 3), 1.0 / 8), 0)
+        log = []
+        out_l, out_g, rays, trips = st.run(log=log, mesh=mesh)
+        torch.save({"eager": (radiance, grads, eager_calls),
+                    "runner": (out_l.clone(), {k: v.clone() for k, v in out_g.items()}, mesh.calls, rays, trips, log)},
+                   os.path.join(out, f"radiance_rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
 
 
 def failing_checks(n, dev):

@@ -9,7 +9,8 @@ JAX mesh becomes a process group), and every process holds the whole scene:
   counter RNG: seed, pixel, sample);
 - the film is all-reduced once a launch, and in the gradient pass each backward
   segment's gradient chunk is all-reduced as soon as its replay produces it
-  (render/diff.py segmented_film_vjp).
+  (render/diff.py segmented_film_vjp; on CUDA between the launches of its graphs,
+  never inside them).
 
 A sharded render equals a one-device render up to the order of the float32 film sum.
 The CPU tests run several gloo ranks in spawned processes; the CLI's ``--mesh N``
@@ -98,6 +99,7 @@ def render_block_sharded(compiled, camera, pixel_ids, rows, cols, spp: int, seed
     rows/cols are accepted for the reference's signature; the streamed path derives
     them from pixel_ids and the camera width.
     """
+    from ..render.graph import launch_graphs
     from ..render.renderer import _chunk_film
 
     mesh = mesh or make_mesh()
@@ -108,8 +110,9 @@ def render_block_sharded(compiled, camera, pixel_ids, rows, cols, spp: int, seed
     film, rays, _ = _chunk_film(
         sd, camera.init(sd.device), pix, pix.shape[0], mesh.index * k, spp, seed, k=k, r=1,
         max_depth=camera.max_depth, has_lights=compiled.has_lights, width=camera.image_width,
+        graphs=launch_graphs(compiled),
     )
-    return all_reduce_film(mesh, film, rays)
+    return all_reduce_film(mesh, film.clone(), rays)  # a copy: the graphs' next launch rewrites theirs
 
 
 def sharded_grad_step(mesh: Mesh, max_depth: int, has_lights: bool):
@@ -119,7 +122,9 @@ def sharded_grad_step(mesh: Mesh, max_depth: int, has_lights: bool):
     Rank i traces samples [sample0 + i*k, sample0 + (i+1)*k) of every pixel with the
     detached estimator (render/diff.py segmented_film_vjp, cotangent ones); each
     backward segment's gradient chunk is all-reduced as its replay ends, and the film
-    once at the end.
+    once at the end. On CUDA the step runs as CUDA graphs kept on the SceneData (one
+    launch of the forward trips a chunk, one of the replays a segment), the collectives
+    between the launches; the counterpart of the reference's jitted shard_map step.
     """
     from ..render.diff import segmented_film_vjp
 

@@ -20,8 +20,11 @@ Design (the detached estimator):
   state in static tensors, saves each forward trip's carry into a staging buffer and
   replays the trips newest first, one ``autograd.grad`` a trip; render/graph.py
   captures its parts into CUDA graphs whose forward and backward loops, and the segment
-  gate, run on the card (K5, ops/loop_cond.py). The eager route above is the CPU's and
-  the graphs' plain version on the card (``plain_grads``).
+  gate, run on the card (K5, ops/loop_cond.py). ``render_grads`` and
+  ``segmented_film_vjp`` (the sharded gradient step) run the masked scan the same way,
+  over ``RadianceScanStages``, as the reference jits ``_value_and_grad_call`` and its
+  ``shard_map`` step. The eager routes above are the CPU's and the graphs' plain
+  versions on the card (``plain_grads``).
 - ``bounce_step(detach=True)`` detaches every sampling-derived quantity (sampled
   direction, mixture pdf, russian-roulette probability), so gradients flow only
   through integrand factors, and a zero pdf kills its lane.
@@ -47,7 +50,8 @@ from torch.utils.checkpoint import checkpoint
 from ..core.dtypes import REAL
 from ..ops import bvh_kernel, hit_kernel, loop_cond, tri_kernel
 from .camera import generate_rays
-from .integrator import STEP_KEYS, _mis_probs, _radiance_step, _stream_step, reset_stream_state, stream_state
+from .integrator import (STEP_KEYS, _mis_probs, _radiance_step, _stream_step, copy_camera, reset_stream_state,
+                         static_camera, stream_state)
 
 # SceneData fields exposed as differentiable parameters
 DIFF_FIELDS = ("mat_params", "tex_rgb", "env_color", "env_img", "atlas")
@@ -68,9 +72,10 @@ _plain = False  # CUDA gradient passes run the eager route (plain_grads)
 
 @contextlib.contextmanager
 def plain_grads():
-    """Within the block, render_film_grads on CUDA runs the eager route (checkpointed trips
-    driven from the host) instead of the graphs: the plain version that the tests and
-    chip_smoke.py hold the graphs against, film bit for bit."""
+    """Within the block, render_film_grads, render_grads and segmented_film_vjp on CUDA run
+    the eager route (checkpointed trips driven from the host) instead of the graphs: the
+    plain version that the tests and chip_smoke.py hold the graphs against, film and
+    radiance bit for bit."""
     global _plain
     before, _plain = _plain, True
     try:
@@ -207,75 +212,68 @@ def trip_cap(k, max_depth, segment_size):
     return -(-(k * max_depth) // segment_size) * segment_size
 
 
-def chunk_trips(lanes, k, max_depth, segment_size, budget=None):
-    """Trips a chunk of FilmScanStages: the most whole segments whose saved carries fit the
-    staging budget (STAGING_BYTES), at least one segment, at most the trip cap."""
+def chunk_trips(lanes, k, max_depth, segment_size, budget=None, saved=SAVED):
+    """Trips a chunk of a stage runner: the most whole segments whose saved carries (`saved`:
+    SAVED for FilmScanStages, RADIANCE_SAVED for RadianceScanStages) fit the staging budget
+    (STAGING_BYTES), at least one segment, at most the trip cap."""
     budget = STAGING_BYTES if budget is None else budget
-    fit = budget // _row_bytes(lanes) // segment_size * segment_size
+    fit = budget // _row_bytes(lanes, saved) // segment_size * segment_size
     return max(segment_size, min(trip_cap(k, max_depth, segment_size), fit))
 
 
-def _row_bytes(lanes):
+def _row_bytes(lanes, saved=SAVED):
     """Bytes of one trip's saved carry, rounded up to 16."""
-    n = sum(lanes * width * dtype.itemsize for _, dtype, width in SAVED)
+    n = sum(lanes * width * dtype.itemsize for _, dtype, width in saved)
     return -(-n // 16) * 16
 
 
-class FilmScanStages:
-    """trace_film_scan and its backward pass over static state: the gradient pass as device steps.
+class TripStages:
+    """What the gradient pass's stage runners share: a scan of trips over static state whose
+    forward trips save their carry into a staging buffer and whose backward trips replay the
+    saved trips newest first, one ``autograd.grad`` a trip, the loops decided on the device.
 
-    The counterpart of the reference's jitted ``_film_grads_step`` (jax.vjp over the
-    trips' ``lax.scan``, each trip checkpointed), in parts that render/graph.py captures,
-    as ``integrator.StreamStages`` is for the render. Every tensor is made once and updated
-    in place: the trip state of ``stream_state``; the parameter leaves (static tensors that
-    require grad, into which each call copies the caller's values); the film cotangent, the
-    seed (a 0-d int64 tensor), the gradient sums, the cotangents of the carry's throughput
-    and radiance (``ct_T``, ``ct_L``), and the counters (trips, rays, replays) on the
-    device. A staging buffer holds the carries of up to ``chunk_trips`` trips, a trip's
-    77 B a lane in one row, so that a chunk's rows are one contiguous copy.
+    The counterpart of the VJP of the reference's checkpointed ``lax.scan`` of trips, in parts
+    that render/graph.py captures. Every tensor is made once and updated in place: the
+    parameter leaves (static tensors that require grad, into which each call copies the
+    caller's values); the cotangent, the seed (a 0-d int64 tensor), the gradient sums, the
+    cotangents of the carry's throughput and radiance (``ct_T``, ``ct_L``), and the counters
+    (trips, rays, replays) on the device. A staging buffer holds the carries of up to
+    ``chunk_trips`` trips, a trip's carry in one row, so that a chunk's rows are one
+    contiguous copy. A subclass makes its state and defines ``reset``, ``forward_trip``,
+    ``backward_trip``, ``gate_lanes`` and ``output``:
 
     - ``reset()``: the state before the first trip; gradient sums, cotangents and counters zero;
     - ``begin_chunk(c0)``: the forward chunk from trip c0 (its end c0 + chunk_trips on the device);
-    - ``forward_trip()``: saves the carry at the device's trip index, then one trip of the
-      detached estimator without autograd, its rays added on the device;
-    - ``cond_forward(bump)``: the segment gate (K5, ``loop_cond.grad_gate``);
+    - ``forward_trip()``: saves the carry at the device's trip index, then one trip without
+      autograd, its rays added on the device;
+    - ``cond_forward(bump)``: the segment gate (K5, ``loop_cond.grad_gate``) over ``gate_lanes()``;
     - ``begin_backward(c0, n, store)``: a chunk's rows back into the staging buffer (unless
       they never left it) and the device's trip index at its newest trip;
     - ``backward_trip()``: loads the saved trip at the device's index, replays it with
-      autograd over the leaves and the carry's throughput and radiance, takes the gradient
-      of T.ct_T + L.ct_L + film.cot, adds the leaves' part to the sums and keeps the rest
-      as the next (earlier) trip's ct_T and ct_L;
-    - ``cond_backward(bump)``: the countdown (K5, ``loop_cond.grad_countdown``).
+      autograd over the leaves and the carry's throughput and radiance, adds the leaves'
+      gradient to the sums and keeps the rest as the next (earlier) trip's ct_T and ct_L;
+    - ``cond_backward(bump)``: the countdown (K5, ``loop_cond.grad_countdown``) to chunk[0];
+    - ``take()``: the gradient sums into one flat tensor, then the sums zeroed (a mesh's
+      chunk a segment).
 
     ``forward_pass`` and ``backward_pass`` walk the chunks, with a function that runs one
     chunk's trips: ``run()`` passes host loops, one read of the condition a trip (the stage
-    runner on the CPU, which the tests hold against the eager route); render/graph.py passes
+    runner on the CPU, which the tests hold against the eager routes); render/graph.py passes
     graph launches, one host read a chunk. Every trip's carry is saved, as the reference's
     scan saves a checkpoint a trip; the chunks' rows wait in stores of their own size, so
-    memory follows the trips run, as the eager route's checkpoints do.
+    memory follows the trips run, as the eager routes' checkpoints do.
     """
 
-    def __init__(self, sd, cam, b, spp_limit, k, max_depth, has_lights, device, segment_size=SEGMENT,
-                 chunk=None):
-        if segment_size < 1:
-            raise ValueError(f"FilmScanStages: segment_size must be >= 1, got {segment_size}")
-        self.cam = cam
-        self.b, self.spp_limit, self.k, self.max_depth, self.has_lights = b, spp_limit, k, max_depth, has_lights
-        self.segment = segment_size
-        self.cap = trip_cap(k, max_depth, segment_size)
-        self.chunk_trips = chunk_trips(b, k, max_depth, segment_size) if chunk is None else chunk
-        if self.chunk_trips < 1 or self.chunk_trips % segment_size:
-            raise ValueError(f"FilmScanStages: a chunk must be whole segments of {segment_size} trips, "
-                             f"got {self.chunk_trips}")
-        self.p_light, self.p_bsdf = _mis_probs(has_lights)
-        i32 = dict(dtype=torch.int32, device=device)
+    def _init_trips(self, sd, b, segment, cap, chunk, saved, device):
+        if chunk < 1 or chunk % segment:
+            raise ValueError(f"{type(self).__name__}: a chunk must be whole segments of {segment} trips, "
+                             f"got {chunk}")
+        self.b, self.segment, self.cap, self.chunk_trips = b, segment, cap, chunk
         i64 = dict(dtype=torch.int64, device=device)
-        proto = stream_state(torch.zeros(1, **i32), torch.zeros(1, **i32), torch.zeros(1, **i32),
-                             torch.zeros(1, **i32))
-        self.state = {key: torch.empty((b, *v.shape[1:]), dtype=v.dtype, device=device) for key, v in proto.items()}
         self.leaves = {n: torch.empty_like(getattr(sd, n)).requires_grad_(True) for n in DIFF_FIELDS}
         self.sdp = apply_params(sd, self.leaves)
         self.grads = {n: torch.zeros_like(v, requires_grad=False) for n, v in self.leaves.items()}
+        self.flat = torch.zeros(sum(v.numel() for v in self.grads.values()), dtype=REAL, device=device)
         self.cot = torch.zeros((b, 3), dtype=REAL, device=device)
         self.ct_T = torch.zeros((b, 3), dtype=REAL, device=device)
         self.ct_L = torch.zeros((b, 3), dtype=REAL, device=device)
@@ -283,36 +281,33 @@ class FilmScanStages:
         self.counters = torch.zeros(3, **i64)  # trips run, rays, trips replayed
         self.trips, self.rays, self.replays = (self.counters[i : i + 1] for i in range(3))
         self.index = torch.zeros(1, **i64)  # the trip a backward replays next
-        self.chunk = torch.zeros(2, **i64)  # the chunk's first trip and its end
+        self.chunk = torch.zeros(2, **i64)  # where the countdown stops, and where the chunk ends
+        self.base = torch.zeros(1, **i64)  # the trip in the staging buffer's first row
         self.row = torch.zeros(1, **i64)  # the staging row of the trip at hand
         self.scratch = torch.zeros(2, dtype=torch.int32, device=device)  # the gate kernel's
         self.cond_out = torch.zeros(2, **i64)
-        self.row_bytes = _row_bytes(b)
-        self.staging = torch.empty((self.chunk_trips, self.row_bytes), dtype=torch.uint8, device=device)
+        self.row_bytes = _row_bytes(b, saved)
+        self.staging = torch.empty((chunk, self.row_bytes), dtype=torch.uint8, device=device)
         self.saved, off = {}, 0
-        for key, dtype, width in SAVED:
+        for key, dtype, width in saved:
             size = b * width * dtype.itemsize
             view = self.staging[:, off : off + size].view(dtype)
-            self.saved[key] = view.view(self.chunk_trips, b, width) if width > 1 else view
+            self.saved[key] = view.view(chunk, b, width) if width > 1 else view
             off += size
 
-    def set_inputs(self, pixel_ids, rows, cols, sample0, params, cot, seed):
-        """The call's inputs into the static tensors: lanes, parameter values by DIFF_FIELDS
-        name (copied into the leaves, never aliased), the lanes' film cotangent [B,3], the seed."""
-        s = self.state
-        for key, val in (("pix", pixel_ids), ("row", rows), ("col", cols), ("sample0", sample0)):
-            s[key].copy_(val)
+    def _set_params(self, params, cot, seed):
+        """Parameter values by DIFF_FIELDS name (copied into the leaves, never aliased), the
+        lanes' cotangent [B,3] and the seed into the static tensors."""
         with torch.no_grad():
             for n, leaf in self.leaves.items():
                 if params[n].shape != leaf.shape:
-                    raise ValueError(f"FilmScanStages: {n} has shape {tuple(params[n].shape)}, the "
+                    raise ValueError(f"{type(self).__name__}: {n} has shape {tuple(params[n].shape)}, the "
                                      f"stages were made for {tuple(leaf.shape)}")
                 leaf.copy_(params[n])
         self.cot.copy_(cot)
         self.seed.fill_(seed)
 
-    def reset(self):
-        reset_stream_state(self.state)
+    def _reset_sums(self):
         self.counters.zero_()
         for g in self.grads.values():
             g.zero_()
@@ -320,29 +315,42 @@ class FilmScanStages:
         self.ct_L.zero_()
 
     def begin_chunk(self, c0):
+        self.base.fill_(c0)
         self.chunk[0].fill_(c0)
         self.chunk[1].fill_(c0 + self.chunk_trips)
 
-    def _step(self, s, sd):
-        return _stream_step(s, sd, self.cam, self.spp_limit, self.seed, self.k, self.max_depth,
-                            self.has_lights, self.p_light, self.p_bsdf, True)
-
-    def forward_trip(self):
-        s = self.state
-        torch.sub(self.trips, self.chunk[:1], out=self.row)
+    def save_carry(self, state):
+        """The carry of `state` into the staging row of the device's trip counter."""
+        torch.sub(self.trips, self.base, out=self.row)
         for key, buf in self.saved.items():
-            buf.index_copy_(0, self.row, s[key].unsqueeze(0))
-        with torch.no_grad():
-            out, n_rays = self._step(s, self.sdp)
-        for key in STEP_KEYS:
-            s[key].copy_(out[key])
-        self.rays.add_(n_rays)
+            buf.index_copy_(0, self.row, state[key].unsqueeze(0))
+
+    def load_carry(self) -> dict:
+        """The saved carry of the trip at the device's index."""
+        torch.sub(self.index, self.base, out=self.row)
+        return {key: torch.index_select(buf, 0, self.row)[0] for key, buf in self.saved.items()}
+
+    def _add_grads(self, T_in, L_in, loss):
+        """d loss / d (leaves, T_in, L_in): the leaves' part into the sums, the rest the next
+        (earlier) trip's ct_T and ct_L. Under enable_grad."""
+        names = list(self.leaves)
+        got = torch.autograd.grad(loss, [self.leaves[n] for n in names] + [T_in, L_in], allow_unused=True)
+        for n, g in zip(names, got):
+            if g is not None:
+                self.grads[n].add_(g)
+        for ct, g in ((self.ct_T, got[-2]), (self.ct_L, got[-1])):
+            if g is None:
+                ct.zero_()
+            else:
+                ct.copy_(g)
 
     def cond_forward(self, bump=False):
-        s = self.state
-        return loop_cond.grad_gate(s["alive"], s["sample"], s["sample0"], self.k, self.spp_limit, self.segment,
-                                   self.cap, self.trips, self.chunk, bump, out=self.cond_out,
-                                   scratch=self.scratch)
+        alive, sample, sample0, k, spp_limit = self.gate_lanes()
+        return loop_cond.grad_gate(alive, sample, sample0, k, spp_limit, self.segment, self.cap, self.trips,
+                                   self.chunk, bump, out=self.cond_out, scratch=self.scratch)
+
+    def cond_backward(self, bump=False):
+        return loop_cond.grad_countdown(self.index, self.chunk, self.replays, bump, out=self.cond_out)
 
     def stash(self, n):
         """The first n staging rows copied into a store of their own (one copy)."""
@@ -353,34 +361,22 @@ class FilmScanStages:
     def begin_backward(self, c0, n, store=None):
         if store is not None:
             self.staging[:n].copy_(store)
+        self.base.fill_(c0)
         self.chunk[0].fill_(c0)
         self.chunk[1].fill_(c0 + n)
         self.index.fill_(c0 + n - 1)
 
-    def backward_trip(self):
-        torch.sub(self.index, self.chunk[:1], out=self.row)
-        s = dict(self.state)
-        for key, buf in self.saved.items():
-            s[key] = torch.index_select(buf, 0, self.row)[0]
-        T_in = s["throughput"] = s["throughput"].detach().requires_grad_(True)
-        L_in = s["radiance"] = s["radiance"].detach().requires_grad_(True)
-        names = list(self.leaves)
-        with torch.enable_grad():
-            out, _ = self._step(s, self.sdp)
-            loss = ((out["throughput"] * self.ct_T).sum() + (out["radiance"] * self.ct_L).sum()
-                    + (out["film"] * self.cot).sum())
-            got = torch.autograd.grad(loss, [self.leaves[n] for n in names] + [T_in, L_in], allow_unused=True)
-        for n, g in zip(names, got):
-            if g is not None:
-                self.grads[n].add_(g)
-        for ct, g in ((self.ct_T, got[-2]), (self.ct_L, got[-1])):
-            if g is None:
-                ct.zero_()
-            else:
-                ct.copy_(g)
+    def take(self):
+        """The gradient sums into ``flat`` (in DIFF_FIELDS order), then the sums zeroed -> flat."""
+        torch.cat([g.reshape(-1) for g in self.grads.values()], out=self.flat)
+        for g in self.grads.values():
+            g.zero_()
+        return self.flat
 
-    def cond_backward(self, bump=False):
-        return loop_cond.grad_countdown(self.index, self.chunk, self.replays, bump, out=self.cond_out)
+    def split(self, flat) -> dict:
+        """A flat gradient (``take``'s layout) by DIFF_FIELDS name."""
+        sizes = [g.numel() for g in self.grads.values()]
+        return {n: x.reshape(g.shape) for (n, g), x in zip(self.grads.items(), flat.split(sizes))}
 
     def forward_pass(self, run_chunk):
         """The forward trips, a chunk at a time: run_chunk(c0) runs the chunk from trip c0 and
@@ -396,18 +392,49 @@ class FilmScanStages:
                 return chunks
             c0 = trips
 
-    def backward_pass(self, chunks, run_chunk):
-        """The backward trips, newest chunk first: run_chunk(c0, n) replays the chunk's trips
-        from its newest, its rows in the staging buffer."""
-        while chunks:
-            c0, n, store = chunks.pop()
-            self.begin_backward(c0, n, store)
-            run_chunk(c0, n)
+    def backward_pass(self, chunks, replay, mesh=None, take=None):
+        """The backward trips, newest first, over forward_pass's chunks: replay() runs the
+        countdown from the device's index down to chunk[0], the chunk's rows in the staging
+        buffer. Without a mesh, one replay a chunk -> None (the total is in the sums).
 
-    def run(self, log=None):
-        """The whole pass driven from the host -> (film [B,3], grads by DIFF_FIELDS name, rays
-        int, trips int). log (a list), if given, gets ("forward" or "backward", the trip
-        counter or index, lanes with work or the index, go) at every read of a condition."""
+        With a mesh (the reference's psum inside its scan): one replay a segment, newest
+        first, its countdown stopped at the segment's first trip; then take() -> the
+        segment's gradient sums as one flat tensor (the sums zeroed), a copy of which is
+        all-reduced over the mesh at once, asynchronously. A segment that the forward gate
+        skipped gives zeros, so every rank issues one collective a segment. -> the flat
+        total, the segments summed newest first, as segmented_film_vjp sums them."""
+        if mesh is None:
+            while chunks:
+                c0, n, store = chunks.pop()
+                self.begin_backward(c0, n, store)
+                replay()
+            return None
+        ran = chunks[-1][0] + chunks[-1][1] if chunks else 0
+        reduced, staged = [], None
+        for t0 in reversed(range(0, self.cap, self.segment)):
+            if t0 >= ran:
+                flat = torch.zeros_like(self.flat)
+            else:
+                if staged is None or t0 < staged:
+                    c0, n, store = chunks.pop()
+                    self.begin_backward(c0, n, store)
+                    staged = c0
+                self.chunk[0].fill_(t0)
+                replay()
+                flat = take().clone()
+            reduced.append((flat, mesh.all_reduce(flat, async_op=True)))
+        total = torch.zeros_like(self.flat)
+        for i, (flat, handle) in enumerate(reduced):
+            if handle is not None:
+                handle.wait()
+            total = flat if i == 0 else total + flat
+        return total
+
+    def run(self, log=None, mesh=None):
+        """The whole pass driven from the host -> (output [B,3], grads by DIFF_FIELDS name, rays
+        int, trips int); with a mesh, the grads summed over it (``backward_pass``). log (a
+        list), if given, gets ("forward" or "backward", the trip counter or index, lanes with
+        work or the index, go) at every read of a condition."""
 
         def loop(cond, phase):
             bump = False
@@ -427,11 +454,169 @@ class FilmScanStages:
 
         self.reset()
         chunks = self.forward_pass(forward_chunk)
-        self.backward_pass(chunks, lambda c0, n: loop(self.cond_backward, "backward"))
+        total = self.backward_pass(chunks, lambda: loop(self.cond_backward, "backward"), mesh, self.take)
         trips, rays, replays = self.counters.tolist()
         if replays != trips:
-            raise RuntimeError(f"FilmScanStages: the backward pass replayed {replays} of {trips} trips")
-        return self.state["film"], self.grads, rays, trips
+            raise RuntimeError(f"{type(self).__name__}: the backward pass replayed {replays} of {trips} trips")
+        return self.output(), self.grads if total is None else self.split(total), rays, trips
+
+
+class FilmScanStages(TripStages):
+    """trace_film_scan and its backward pass over static state: the gradient pass as device steps.
+
+    The counterpart of the reference's jitted ``_film_grads_step`` (jax.vjp over the
+    trips' ``lax.scan``, each trip checkpointed), as ``integrator.StreamStages`` is for the
+    render. Its state is the trip state of ``stream_state``; a trip saves SAVED, 77 B a
+    lane; the cotangent is the lanes' film cotangent, which every replayed trip adds to
+    its loss (T.ct_T + L.ct_L + film.cot).
+    """
+
+    def __init__(self, sd, cam, b, spp_limit, k, max_depth, has_lights, device, segment_size=SEGMENT,
+                 chunk=None):
+        if segment_size < 1:
+            raise ValueError(f"FilmScanStages: segment_size must be >= 1, got {segment_size}")
+        self.cam = cam
+        self.spp_limit, self.k, self.max_depth, self.has_lights = spp_limit, k, max_depth, has_lights
+        self.p_light, self.p_bsdf = _mis_probs(has_lights)
+        chunk = chunk_trips(b, k, max_depth, segment_size) if chunk is None else chunk
+        self._init_trips(sd, b, segment_size, trip_cap(k, max_depth, segment_size), chunk, SAVED, device)
+        i32 = dict(dtype=torch.int32, device=device)
+        proto = stream_state(torch.zeros(1, **i32), torch.zeros(1, **i32), torch.zeros(1, **i32),
+                             torch.zeros(1, **i32))
+        self.state = {key: torch.empty((b, *v.shape[1:]), dtype=v.dtype, device=device) for key, v in proto.items()}
+
+    def set_inputs(self, pixel_ids, rows, cols, sample0, params, cot, seed):
+        """The call's inputs into the static tensors: lanes, parameter values by DIFF_FIELDS
+        name, the lanes' film cotangent [B,3], the seed."""
+        s = self.state
+        for key, val in (("pix", pixel_ids), ("row", rows), ("col", cols), ("sample0", sample0)):
+            s[key].copy_(val)
+        self._set_params(params, cot, seed)
+
+    def reset(self):
+        reset_stream_state(self.state)
+        self._reset_sums()
+
+    def gate_lanes(self):
+        s = self.state
+        return s["alive"], s["sample"], s["sample0"], self.k, self.spp_limit
+
+    def output(self):
+        return self.state["film"]
+
+    def _step(self, s, sd):
+        return _stream_step(s, sd, self.cam, self.spp_limit, self.seed, self.k, self.max_depth,
+                            self.has_lights, self.p_light, self.p_bsdf, True)
+
+    def forward_trip(self):
+        s = self.state
+        self.save_carry(s)
+        with torch.no_grad():
+            out, n_rays = self._step(s, self.sdp)
+        for key in STEP_KEYS:
+            s[key].copy_(out[key])
+        self.rays.add_(n_rays)
+
+    def backward_trip(self):
+        s = dict(self.state, **self.load_carry())
+        T_in = s["throughput"] = s["throughput"].detach().requires_grad_(True)
+        L_in = s["radiance"] = s["radiance"].detach().requires_grad_(True)
+        with torch.enable_grad():
+            out, _ = self._step(s, self.sdp)
+            loss = ((out["throughput"] * self.ct_T).sum() + (out["radiance"] * self.ct_L).sum()
+                    + (out["film"] * self.cot).sum())
+            self._add_grads(T_in, L_in, loss)
+
+
+# The carry a forward trip of the masked scan saves and its replay loads, as SAVED: 49 B a lane.
+RADIANCE_SAVED = (("o", REAL, 3), ("d", REAL, 3), ("throughput", REAL, 3), ("radiance", REAL, 3),
+                  ("alive", torch.bool, 1))
+
+
+class RadianceScanStages(TripStages):
+    """trace_radiance_scan and its backward pass over static state: one (pixel, sample) path
+    a lane, the counterpart of the reference's jitted ``_value_and_grad_call`` over its masked
+    scan (``tpupt/render/diff.py:79-142,434-442``), and of the scan inside its sharded
+    gradient step.
+
+    Its state: the lanes (pixel, row, col, sample id; inputs), the camera (a static copy each
+    call copies into), the rays' time, and the carry (o, d, T, L, alive) that a trip saves,
+    RADIANCE_SAVED. A trip's bounce is the device's trip counter (the index in a replay).
+    K5's gate decides the trips: its work predicate with k = 1 and spp_limit = 0 is
+    ``alive``, so a segment runs while a lane is alive, as the eager route's host read
+    decides; the cap is max_depth (bounces past it are not run). segment_size 0: no gate,
+    every bounce runs (one segment of max_depth trips). The cotangent is the lanes'
+    radiance cotangent: ``reset`` starts ct_L at it, and a replayed trip's loss is T.ct_T +
+    L.ct_L.
+    """
+
+    def __init__(self, sd, cam, b, max_depth, has_lights, device, segment_size=SEGMENT, chunk=None):
+        if segment_size < 0:
+            raise ValueError(f"RadianceScanStages: segment_size must be >= 0, got {segment_size}")
+        segment = segment_size or max(max_depth, 1)
+        self.cam = static_camera(cam, device)
+        self.max_depth, self.has_lights = max_depth, has_lights
+        chunk = chunk_trips(b, 1, max_depth, segment, saved=RADIANCE_SAVED) if chunk is None else chunk
+        self._init_trips(sd, b, segment, max_depth, chunk, RADIANCE_SAVED, device)
+        i32 = dict(dtype=torch.int32, device=device)
+        f32 = dict(dtype=REAL, device=device)
+        self.state = dict(
+            pix=torch.zeros(b, **i32), row=torch.zeros(b, **i32), col=torch.zeros(b, **i32),
+            sample=torch.zeros(b, **i32), time=torch.zeros(b, **f32),
+            o=torch.zeros((b, 3), **f32), d=torch.zeros((b, 3), **f32), throughput=torch.zeros((b, 3), **f32),
+            radiance=torch.zeros((b, 3), **f32), alive=torch.zeros(b, dtype=torch.bool, device=device),
+        )
+        self.no_samples = torch.zeros(b, **i32)  # the gate's sample and first sample: no lane has any left
+
+    def set_inputs(self, pixel_ids, rows, cols, sample_ids, params, cot, seed, cam=None):
+        """The call's inputs into the static tensors: lanes, parameter values by DIFF_FIELDS
+        name, the lanes' radiance cotangent [B,3], the seed and the camera's values."""
+        s = self.state
+        for key, val in (("pix", pixel_ids), ("row", rows), ("col", cols), ("sample", sample_ids)):
+            s[key].copy_(val)
+        self._set_params(params, cot, seed)
+        if cam is not None:
+            copy_camera(self.cam, cam)
+
+    def reset(self):
+        s = self.state
+        o, d, time = generate_rays(self.cam, s["row"], s["col"], s["pix"], s["sample"], self.seed)
+        s["o"].copy_(o)
+        s["d"].copy_(d)
+        s["time"].copy_(time)
+        s["throughput"].fill_(1.0)
+        s["radiance"].zero_()
+        s["alive"].fill_(True)
+        self._reset_sums()
+        self.ct_L.copy_(self.cot)
+
+    def gate_lanes(self):
+        return self.state["alive"], self.no_samples, self.no_samples, 1, 0
+
+    def output(self):
+        return self.state["radiance"]
+
+    def _step(self, c, bounce):
+        s = self.state
+        return _radiance_step(self.sdp, (s["time"], s["pix"], s["sample"], self.seed), c["o"], c["d"],
+                              c["throughput"], c["radiance"], c["alive"], bounce, self.has_lights, True)
+
+    def forward_trip(self):
+        s = self.state
+        self.save_carry(s)
+        with torch.no_grad():
+            *out, n_rays = self._step(s, self.trips)
+        for key, v in zip(("o", "d", "throughput", "radiance", "alive"), out):
+            s[key].copy_(v)
+        self.rays.add_(n_rays)
+
+    def backward_trip(self):
+        c = self.load_carry()
+        T_in = c["throughput"] = c["throughput"].detach().requires_grad_(True)
+        L_in = c["radiance"] = c["radiance"].detach().requires_grad_(True)
+        with torch.enable_grad():
+            _, _, T, L, _, _ = self._step(c, self.index)
+            self._add_grads(T_in, L_in, (T * self.ct_T).sum() + (L * self.ct_L).sum())
 
 
 @dataclasses.dataclass
@@ -562,8 +747,23 @@ def segmented_film_vjp(
     backward; the handles are waited on at the end. The segment gate stays per rank:
     a rank whose lanes are all dead in a segment joins that segment's collective
     with zeros. cotangent is per lane [B,3]. Returns (radiance [B,3], grads by
-    DIFF_FIELDS name, summed over the mesh).
+    DIFF_FIELDS name (params' names), summed over the mesh).
+
+    On CUDA the pass runs as CUDA graphs over ``RadianceScanStages`` (render/graph.py,
+    ``radiance_graphs``, kept on `sd`): the forward trips one chain, the backward one
+    launch a segment under a mesh (the collectives between the launches, outside the
+    graphs), else one a chunk. Within ``plain_grads()``, and on the CPU, it runs the eager
+    route below.
     """
+    if pixel_ids.device.type == "cuda" and not _plain:
+        from .graph import radiance_graphs
+
+        if segment_size < 1:
+            raise ValueError(f"segmented_film_vjp: segment_size must be >= 1, got {segment_size}")
+        graphs = radiance_graphs(sd, sd, cam, pixel_ids.shape[0], max_depth, has_lights, segment_size)
+        graphs.forward(pixel_ids, rows, cols, sample_ids, {**init_params(sd), **params}, cotangent, seed, cam)
+        radiance, grads, _ = graphs.backward(mesh)
+        return radiance, {n: grads[n] for n in params}
     o, d, time = generate_rays(cam, rows, cols, pixel_ids, sample_ids, seed)
     b = pixel_ids.shape[0]
     lane_args = (time, pixel_ids, sample_ids, seed)
@@ -654,10 +854,16 @@ def render_grads(
     Returns (radiance [npix,3] averaged over spp, grads of sum(cotangent * radiance)
     by DIFF_FIELDS name); cotangent [npix,3] defaults to ones. return_stats=True
     appends the traced-ray count.
+
+    On CUDA the masked scan and its backward run as CUDA graphs over
+    ``RadianceScanStages`` (render/graph.py, ``radiance_graphs``), kept on the compiled
+    scene for later calls of the same configuration (pixel ids, seed, cotangent, the
+    parameters' values and the camera are inputs), as the reference jits
+    ``_value_and_grad_call``; within ``plain_grads()``, and on the CPU, it runs the eager
+    route (checkpointed trips, autograd). The outputs are the caller's own tensors either way.
     """
     sd = compiled.data
     dev = sd.device
-    fn = make_pixel_fn(compiled, camera, with_rays=True, segment_size=segment_size)
     w = camera.image_width
     ids = torch.as_tensor(pixel_ids, dtype=torch.int32, device=dev)
     npix = ids.shape[0]
@@ -670,10 +876,20 @@ def render_grads(
         c = torch.as_tensor(cotangent, dtype=REAL, device=dev)
         cot = c[:, None, :].expand(npix, spp, 3) / spp
 
-    params = _leaves(init_params(sd))
-    with torch.enable_grad():
-        val, rays = fn(params, pix, rows, cols, samp, seed)
-        grads = _grads((val * cot.reshape(-1, 3)).sum(), params)
+    if dev.type == "cuda" and not _plain:
+        from .graph import radiance_graphs
+
+        cam = camera.init(dev)
+        graphs = radiance_graphs(compiled, sd, cam, pix.shape[0], camera.max_depth, compiled.has_lights,
+                                 segment_size)
+        graphs.forward(pix, rows, cols, samp, init_params(sd), cot.reshape(-1, 3), seed, cam)
+        val, grads, rays = graphs.backward()
+    else:
+        fn = make_pixel_fn(compiled, camera, with_rays=True, segment_size=segment_size)
+        params = _leaves(init_params(sd))
+        with torch.enable_grad():
+            val, rays = fn(params, pix, rows, cols, samp, seed)
+            grads = _grads((val * cot.reshape(-1, 3)).sum(), params)
     radiance = val.detach().reshape(npix, spp, 3).mean(dim=1)
     if return_stats:
         return radiance, grads, rays

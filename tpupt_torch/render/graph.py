@@ -1,4 +1,4 @@
-"""A launch of the render as one device program: CUDA graphs whose loops run on the card.
+"""The reference's jitted programs as device programs: CUDA graphs whose loops run on the card.
 
 Counterpart of how the reference runs a launch: ``_chunk_film = jax.jit(...)``
 (``tpupt/render/renderer.py:104``) compiles it whole, and each compaction stage of its
@@ -14,27 +14,36 @@ chain; the host reads the launch's counters (rays, iterations a stage) once.
 The first launch of a shape runs its first wavefront iteration eagerly, which builds
 what the kernels keep between calls (K1's packed tables, K4's wide tree, the packet
 counters of the capture stream; none of which may be made under capture), then
-captures and launches the chain from there. Later launches replay from the reset.
+captures and launches the chain from there. As ``jax.jit`` keeps ``_chunk_film``'s
+program, ``launch_graphs`` keeps the graphs on the compiled scene, keyed by what fixes
+a launch's work (lanes, spp_limit, k, r, max_depth, has_lights); lanes, seed and camera
+are inputs copied into static tensors, so later launches and later calls replay from
+the reset, with no capture and no eager iteration. Graphs whose scene moved (``_stamp``:
+a tensor edited in place or replaced, a static field) are made anew.
 
-The captured parts share one memory pool, replayed in the order they were captured.
-Graphs live as long as their ``LaunchGraphs`` (one ``render_image`` call). A failure to
-capture, instantiate or launch raises and names the part; nothing falls back to the
-eager loop. Kernel launch counts stay true: a wrapper called under capture counts the
-call as captured, not launched, and each launch of the chain adds the captured calls
+The captured parts share one memory pool, replayed in the order they were captured. A
+failure to capture, instantiate or launch raises and names the part; nothing falls back
+to the eager loop. Kernel launch counts stay true: a wrapper called under capture counts
+the call as captured, not launched, and each launch of the chain adds the captured calls
 of a stage's body times the iterations the stage ran on the card.
 
-The gradient pass (``GradGraphs``) is the counterpart of the reference's jitted
-``_film_grads_step`` (``tpupt/render/diff.py:252-276``): ``diff.FilmScanStages``' parts
-captured the same way, in two chains. The forward chain is a WHILE node whose body is one
-trip (its carry saved into the staging buffer) and the segment gate, launched once a
-chunk of trips; the host reads the trips run and the lanes with work once a chunk, and
-copies the chunk's saved rows out when another chunk follows. The backward chain is a
-WHILE node whose body is one trip's replay with its ``autograd.grad``, counting down,
-launched once a chunk, newest first, after the chunk's rows are copied back. The first
-call of a configuration runs its first forward trip and its first replay eagerly (they
-make what may not be made under capture) and captures; the graphs stay on the compiled
-scene (``grad_graphs``), so later calls with another seed, cotangent or parameter values
-replay them, unless the scene's geometry moved, which makes them anew.
+The gradient passes (``GradGraphs``) are the counterparts of the reference's jitted
+``_film_grads_step`` (``tpupt/render/diff.py:252-276``; ``FilmScanStages``), of its jitted
+``_value_and_grad_call`` over the masked scan (``:434-442``; ``RadianceScanStages``,
+render_grads) and of its jitted ``shard_map`` gradient step (``tpupt/parallel/sharding.py:
+98-145``; segmented_film_vjp), a stage runner's parts captured the same way, in two chains.
+The forward chain is a WHILE node whose body is one trip (its carry saved into the staging
+buffer) and the segment gate, launched once a chunk of trips; the host reads the trips run
+and the lanes with work once a chunk, and copies the chunk's saved rows out when another
+chunk follows. The backward chain is a WHILE node whose body is one trip's replay with its
+``autograd.grad``, counting down, launched once a chunk, newest first, after the chunk's
+rows are copied back; under a mesh once a segment, each segment's gradient sums then taken
+by a captured copy and all-reduced outside the graphs (a WHILE body takes kernel, memcpy
+and memset nodes only). The first call of a configuration runs its first forward trip and
+its first replay eagerly (they make what may not be made under capture) and captures; the
+graphs stay on the compiled scene or the SceneData (``grad_graphs``, ``radiance_graphs``),
+so later calls with another seed, cotangent or parameter values replay them, unless the
+scene's geometry moved, which makes them anew.
 """
 
 from __future__ import annotations
@@ -48,7 +57,7 @@ import torch
 
 from ..core.dtypes import REAL
 from ..ops import bvh_kernel, hit_kernel, loop_cond, tri_kernel
-from .diff import DIFF_FIELDS, FilmScanStages, chunk_trips
+from .diff import DIFF_FIELDS, RADIANCE_SAVED, FilmScanStages, RadianceScanStages, chunk_trips
 from .integrator import StreamStages
 
 
@@ -80,8 +89,8 @@ def _node_types(graph: torch.cuda.CUDAGraph) -> dict:
 
 
 def _capture(what, fn, pool, keep_graph=True):
-    """fn captured into a CUDA graph in `pool` -> (graph, kernel calls captured). A failure
-    raises RuntimeError naming `what`."""
+    """fn captured into a CUDA graph in `pool` (None: a pool of its own) -> (graph, kernel
+    calls captured). A failure raises RuntimeError naming `what`."""
     g = torch.cuda.CUDAGraph(keep_graph=keep_graph)
     _zero_captured()
     g.capture_begin(pool=pool)
@@ -109,13 +118,39 @@ def _body(what, graph):
                            "memcpy and memset nodes")
 
 
+def _stamp(sd, inputs=DIFF_FIELDS) -> tuple:
+    """What captured graphs assume of a SceneData besides the values of the fields in
+    `inputs` (copied in at each call): the object, each other tensor's address and version,
+    every static field's value, the inputs' shapes. The gradient graphs take the parameters
+    as inputs; the render's graphs read every field where it lies (inputs=())."""
+    out = [id(sd)]
+    for f in dataclasses.fields(sd):
+        v = getattr(sd, f.name)
+        if f.name in inputs:
+            out.append(tuple(v.shape))
+        elif torch.is_tensor(v):
+            out.append((v.data_ptr(), v._version))
+        else:
+            out.append(repr(v))
+    return tuple(out)
+
+
+def _destroy(chains: dict):
+    """Free instantiated chains (on close, or when their owner is collected)."""
+    for name in list(chains):
+        loop_cond.lib().tpupt_loop_graph_destroy(chains.pop(name))
+
+
 class LaunchGraphs:
-    """The captured launches of one render call, by the arguments that stay constant
-    over it. Use as a context manager, or call ``close()``."""
+    """Captured launches by the arguments that fix a launch's work: lanes, spp_limit, k, r,
+    max_depth, has_lights. Seed, camera and lanes are inputs copied into static tensors at
+    each launch, so a later launch or call of the same shape replays. ``launch_graphs``
+    keeps one on a compiled scene; made alone, use it as a context manager or call
+    ``close()``."""
 
     def __init__(self):
         self._launches: dict[tuple, _Launch] = {}
-        self.capture_s = 0.0  # capture and instantiation, host seconds
+        self.capture_s = 0.0  # capture and instantiation, host seconds, summed over launches
 
     def run(self, sd, cam, pix, rows, cols, lane_sample0, n_work0, *, spp_limit, seed, k, r, max_depth,
             has_lights):
@@ -124,16 +159,26 @@ class LaunchGraphs:
         pix, rows, cols, lane_sample0 [B] are the launch's lanes (r lanes a pixel);
         n_work0 is the count of lanes that start with a sample to take (lane_sample0 <
         spp_limit), known to the host. The film is a buffer of the graphs: valid until the
-        next launch of the same shape.
+        next launch of the same shape. Graphs whose scene moved since their capture
+        (``_stamp``) are dropped and made anew.
         """
         if n_work0 == 0:  # no lane starts a sample: nothing to trace
             return torch.zeros((pix.shape[0] // r, 3), dtype=REAL, device=pix.device), 0, 0
-        key = (id(sd), id(cam), pix.shape[0], spp_limit, seed, k, r, max_depth, has_lights)
+        key = (pix.shape[0], spp_limit, k, r, max_depth, has_lights)
         launch = self._launches.get(key)
+        if launch is not None and launch.stamp != _stamp(sd, inputs=()):
+            launch.close()
+            launch = None
         if launch is None:
-            launch = self._launches[key] = _Launch(self, sd, cam, pix.shape[0], spp_limit, seed, k, r,
-                                                   max_depth, has_lights, pix.device)
-        return launch.run(pix, rows, cols, lane_sample0, n_work0)
+            launch = self._launches[key] = _Launch(self, sd, cam, pix.shape[0], spp_limit, k, r, max_depth,
+                                                   has_lights, pix.device)
+        try:
+            return launch.run(pix, rows, cols, lane_sample0, n_work0, seed, cam)
+        except BaseException:
+            if launch.reset_graph is None:  # its capture failed: the next launch makes new graphs
+                del self._launches[key]
+                launch.close()
+            raise
 
     def close(self):
         for launch in self._launches.values():
@@ -147,14 +192,24 @@ class LaunchGraphs:
         self.close()
 
 
+def launch_graphs(compiled) -> LaunchGraphs:
+    """The render's launch graphs kept on `compiled` (the counterpart of ``_chunk_film``'s
+    jit cache): made at first use, freed with the compiled scene."""
+    graphs = compiled.__dict__.get("_launch_graphs")
+    if graphs is None:
+        graphs = compiled.__dict__["_launch_graphs"] = LaunchGraphs()
+    return graphs
+
+
 class _Launch:
     """The graphs of one launch shape."""
 
-    def __init__(self, owner, sd, cam, b, spp_limit, seed, k, r, max_depth, has_lights, device):
+    def __init__(self, owner, sd, cam, b, spp_limit, k, r, max_depth, has_lights, device):
         self.owner = owner
-        self.sd, self.cam = sd, cam  # the graphs read their tensors
+        self.stamp = _stamp(sd, inputs=())
+        self.sd = sd  # the graphs read its tensors
         self.r = r
-        self.st = StreamStages(sd, cam, b, spp_limit, seed, k, max_depth, has_lights, device)
+        self.st = StreamStages(sd, cam, b, spp_limit, k, max_depth, has_lights, device)
         self.film = torch.empty((b // r, 3), dtype=self.st.bank.dtype, device=device)
         self.scratch = torch.zeros(2, dtype=torch.int32, device=device)  # the condition kernel's
         self.cond_out = torch.zeros(2, dtype=torch.int64, device=device)
@@ -164,6 +219,7 @@ class _Launch:
         self.bodies, self.compactions, self.finish = [], [], None
         self.per_iteration = []  # kernel calls captured in each stage's body
         self.parents: dict[int, ctypes.c_void_p] = {}  # chains by their first stage
+        weakref.finalize(self, _destroy, self.parents)
 
     # -- capture ---------------------------------------------------------------------
 
@@ -237,16 +293,16 @@ class _Launch:
             t0 = _time.perf_counter()
             try:
                 self._capture_all()
-            except BaseException:  # no half-captured launch is kept: the next launch starts over
+            except BaseException:  # nothing half-captured is kept (LaunchGraphs drops this launch)
                 self.reset_graph, self.bodies, self.compactions, self.per_iteration = None, [], [], []
                 raise
             self.owner.capture_s += _time.perf_counter() - t0
         torch.cuda.current_stream().wait_stream(self.stream)
         return start
 
-    def run(self, pix, rows, cols, lane_sample0, n_work0):
+    def run(self, pix, rows, cols, lane_sample0, n_work0, seed, cam):
         st = self.st
-        st.set_inputs(pix, rows, cols, lane_sample0)
+        st.set_inputs(pix, rows, cols, lane_sample0, seed, cam)
         eager = [0] * len(st.states)
         if self.reset_graph is None:
             start = self._first(n_work0)
@@ -268,78 +324,84 @@ class _Launch:
     def close(self):
         if self.parents:
             torch.cuda.synchronize()
-        for start, handle in list(self.parents.items()):
-            del self.parents[start]
-            loop_cond.check(loop_cond.lib().tpupt_loop_graph_destroy(handle), "render graph: destroying a chain")
+        _destroy(self.parents)
         self.bodies, self.compactions, self.finish, self.reset_graph = [], [], None, None
 
 
-# ---- the gradient pass -----------------------------------------------------------------
+# ---- the gradient passes -----------------------------------------------------------------
 
 
-def _stamp(sd) -> tuple:
-    """What the captured gradient pass assumes of a SceneData besides its parameters' values:
-    the object, each other tensor's address and version, every static field's value, the
-    parameters' shapes."""
-    out = [id(sd)]
-    for f in dataclasses.fields(sd):
-        v = getattr(sd, f.name)
-        if f.name in DIFF_FIELDS:
-            out.append(tuple(v.shape))
-        elif torch.is_tensor(v):
-            out.append((v.data_ptr(), v._version))
-        else:
-            out.append(repr(v))
-    return tuple(out)
+class _Kept(dict):
+    """Graphs by configuration, kept on the object whose id is ``owner``."""
+
+    def __init__(self, owner):
+        super().__init__()
+        self.owner = id(owner)
 
 
-def grad_graphs(compiled, camera, cam, lanes, spp, k, r, segment_size) -> GradGraphs:
-    """The gradient pass's graphs of one configuration of `compiled`: kept on it, keyed by
-    the lanes, k, r, spp, max_depth, has_lights, segment_size, the chunk and the camera;
-    made at the configuration's first call and replayed by the later ones. Graphs whose
-    scene moved since their capture (``_stamp``: an edit in place, a replaced tensor or
-    field) are dropped and made anew. cam is the camera's data on the scene's device."""
-    sd = compiled.data
-    chunk = chunk_trips(lanes, k, camera.max_depth, segment_size)
-    key = (lanes, k, r, spp, camera.max_depth, compiled.has_lights, segment_size, chunk, repr(camera))
-    cache = compiled.__dict__.setdefault("_grad_graphs", {})
+def _kept(owner, name, key, stamp, make):
+    """The graphs kept on `owner` under `name` and `key`, made by make() at first use. Graphs
+    whose scene moved since their capture (their stamp is not `stamp`) or that were closed
+    are dropped and made anew. The cache belongs to `owner` alone: a shallow copy of it
+    (``apply_params`` copies a SceneData) starts its own."""
+    cache = owner.__dict__.get(name)
+    if cache is None or cache.owner != id(owner):
+        cache = owner.__dict__[name] = _Kept(owner)
     graphs = cache.get(key)
-    if graphs is not None and (graphs.closed or graphs.stamp != _stamp(sd)):
+    if graphs is not None and (graphs.closed or graphs.stamp != stamp):
         graphs.close()
         graphs = None
     if graphs is None:
-        graphs = cache[key] = GradGraphs(sd, cam, lanes, spp, k, camera.max_depth, compiled.has_lights,
-                                         segment_size, chunk)
+        graphs = cache[key] = make()
     return graphs
 
 
-def _destroy(chains: dict):
-    """Free the instantiated chains (on close, or when their GradGraphs is collected)."""
-    for name in list(chains):
-        loop_cond.lib().tpupt_loop_graph_destroy(chains.pop(name))
+def grad_graphs(compiled, camera, cam, lanes, spp, k, r, segment_size) -> GradGraphs:
+    """render_film_grads' graphs of one configuration of `compiled`: kept on it, keyed by the
+    lanes, k, r, spp, max_depth, has_lights, segment_size, the chunk and the camera; made at
+    the configuration's first call and replayed by the later ones. Graphs whose scene moved
+    since their capture (``_stamp``: an edit in place, a replaced tensor or field) are
+    dropped and made anew. cam is the camera's data on the scene's device."""
+    sd = compiled.data
+    chunk = chunk_trips(lanes, k, camera.max_depth, segment_size)
+    key = (lanes, k, r, spp, camera.max_depth, compiled.has_lights, segment_size, chunk, repr(camera))
+    return _kept(compiled, "_grad_graphs", key, _stamp(sd), lambda: GradGraphs(sd, lambda: FilmScanStages(
+        sd, cam, lanes, spp, k, camera.max_depth, compiled.has_lights, sd.device, segment_size, chunk)))
+
+
+def radiance_graphs(owner, sd, cam, lanes, max_depth, has_lights, segment_size) -> GradGraphs:
+    """The masked scan's graphs (``RadianceScanStages``) of one configuration, kept on `owner`
+    (render_grads: the compiled scene; segmented_film_vjp: the SceneData), keyed by the
+    lanes, max_depth, has_lights, segment_size and the chunk; remade as ``grad_graphs``' are.
+    Lanes, seed, cotangent, parameter values and the camera are inputs."""
+    chunk = chunk_trips(lanes, 1, max_depth, segment_size or max(max_depth, 1), saved=RADIANCE_SAVED)
+    key = (lanes, max_depth, has_lights, segment_size, chunk)
+    return _kept(owner, "_radiance_graphs", key, _stamp(sd), lambda: GradGraphs(sd, lambda: RadianceScanStages(
+        sd, cam, lanes, max_depth, has_lights, sd.device, segment_size, chunk)))
 
 
 class GradGraphs:
-    """The captured gradient pass of one configuration (``grad_graphs`` keeps them).
+    """The captured gradient pass of one configuration, over a stage runner (``TripStages``:
+    ``FilmScanStages`` or ``RadianceScanStages``, made by make() on the graphs' stream).
 
-    A call is ``forward(...)`` (-> trips), then ``backward()`` (-> film, grads, rays).
-    capture_s, host_reads and chunks describe the last call.
+    A call is ``forward(*inputs)`` (-> trips; inputs as the runner's ``set_inputs``), then
+    ``backward(mesh=None)`` (-> output, grads, rays). capture_s, host_reads, chunks and
+    trips describe the last call.
     """
 
-    def __init__(self, sd, cam, b, spp_limit, k, max_depth, has_lights, segment_size, chunk):
-        device = sd.device
+    def __init__(self, sd, make):
         self.stamp = _stamp(sd)
-        self.stream = torch.cuda.Stream(device)
+        self.stream = torch.cuda.Stream(sd.device)
         with torch.cuda.stream(self.stream):
-            self.st = FilmScanStages(sd, cam, b, spp_limit, k, max_depth, has_lights, device, segment_size, chunk)
+            self.st = make()
         self.pool = torch.cuda.graph_pool_handle()
-        self.reset_graph = None
+        self.reset_graph = self.take_graph = None
         self.bodies, self.calls = {}, {}  # "forward", "backward": captured body, kernel calls in it
         self.chains: dict[str, ctypes.c_void_p] = {}  # "forward", "backward": instantiated chain
         weakref.finalize(self, _destroy, self.chains)
         self.closed = False
-        self.capture_s, self.host_reads, self.chunks = 0.0, 0, 0
-        self._chunks, self._trips, self._eager_replays = [], 0, 0
+        self.capture_s, self.host_reads, self.chunks, self.trips = 0.0, 0, 0, 0
+        self._chunks, self._eager_replays, self._backward_launches = [], 0, 0
 
     # -- capture ---------------------------------------------------------------------
 
@@ -356,11 +418,11 @@ class GradGraphs:
         try:
             body = self.bodies[name].raw_cuda_graph()
             if name == "forward":
-                s = st.state
+                alive, sample, sample0, k, spp_limit = st.gate_lanes()
                 err = lib.tpupt_loop_graph_add_gate_while(
-                    handle, body, s["alive"].data_ptr(), s["sample"].data_ptr(), s["sample0"].data_ptr(), st.b, st.k,
-                    st.spp_limit, st.segment, st.cap, st.trips.data_ptr(), st.chunk.data_ptr(),
-                    st.scratch.data_ptr(), st.cond_out.data_ptr())
+                    handle, body, alive.data_ptr(), sample.data_ptr(), sample0.data_ptr(), st.b, k, spp_limit,
+                    st.segment, st.cap, st.trips.data_ptr(), st.chunk.data_ptr(), st.scratch.data_ptr(),
+                    st.cond_out.data_ptr())
             else:
                 err = lib.tpupt_loop_graph_add_countdown_while(
                     handle, body, st.index.data_ptr(), st.chunk.data_ptr(), st.replays.data_ptr(),
@@ -410,58 +472,74 @@ class GradGraphs:
         trips, n_work = torch.cat([st.trips, st.cond_out[:1]]).tolist()  # the host read of the chunk
         self.host_reads += 1
         self.chunks += 1
-        self._trips = trips
+        self.trips = trips
         on_card = trips - c0 - eager
         _add_launches({key: n * on_card for key, n in self.calls["forward"].items()})
         loop_cond.gate_launches += 1 + on_card
         return trips, n_work
 
-    def _backward_chunk(self, c0, n):
+    def _replay(self):
+        """The countdown from the device's index to chunk[0]: one launch of the backward chain."""
         st = self.st
         if "backward" not in self.chains:
             self._first("backward", st.backward_trip, st.cond_backward,
                         lambda: self._capture_body("backward", st.backward_trip))
             self._eager_replays = 1
         self._launch("backward")
+        self._backward_launches += 1
 
-    def forward(self, pix, rows, cols, sample0, params, cot, seed) -> int:
-        """The forward trips of a call -> trips run. Inputs as ``FilmScanStages.set_inputs``."""
+    def _take(self):
+        """The runner's ``take()`` (a segment's gradient sums into its flat tensor, the sums
+        zeroed) by a captured graph -> the flat tensor."""
+        if self.take_graph is None:
+            self.take_graph, _ = _capture("gradient graph: capturing the take of the sums", self.st.take,
+                                          None, keep_graph=False)
+        self.take_graph.replay()
+        return self.st.flat
+
+    def forward(self, *inputs) -> int:
+        """The forward trips of a call -> trips run. inputs as the runner's ``set_inputs``."""
         if self.closed:
             raise RuntimeError("gradient graph: these graphs were closed")
         st = self.st
-        self.capture_s, self.host_reads, self.chunks, self._eager_replays = 0.0, 0, 0, 0
+        self.capture_s, self.host_reads, self.chunks = 0.0, 0, 0
+        self._eager_replays = self._backward_launches = 0
         caller = torch.cuda.current_stream()
         self.stream.wait_stream(caller)
         with torch.cuda.stream(self.stream):
-            st.set_inputs(pix, rows, cols, sample0, params, cot, seed)
+            st.set_inputs(*inputs)
             if self.reset_graph is None:
                 st.reset()
             else:
                 self.reset_graph.replay()
             self._chunks = st.forward_pass(self._forward_chunk)
         caller.wait_stream(self.stream)
-        return self._trips
+        return self.trips
 
-    def backward(self):
-        """The call's backward trips -> (film sums [B,3], grads by DIFF_FIELDS name, rays int),
-        the caller's own tensors."""
+    def backward(self, mesh=None):
+        """The call's backward trips -> (output [B,3], grads by DIFF_FIELDS name, rays int), the
+        caller's own tensors. mesh: each segment's gradient all-reduced over it as its replay
+        ends, outside the graphs (``TripStages.backward_pass``)."""
         st = self.st
         caller = torch.cuda.current_stream()
         self.stream.wait_stream(caller)
         with torch.cuda.stream(self.stream):
-            st.backward_pass(self._chunks, self._backward_chunk)
+            total = st.backward_pass(self._chunks, self._replay, mesh, self._take)
             trips, rays, replays = st.counters.tolist()  # the call's last host read
+            grads = ({n: g.clone() for n, g in st.grads.items()} if total is None
+                     else st.split(total))
+            out = st.output().clone()
         self.host_reads += 1
         caller.wait_stream(self.stream)
         if replays != trips:
             raise RuntimeError(f"gradient graph: the backward pass replayed {replays} of {trips} trips")
         on_card = replays - self._eager_replays
-        _add_launches({key: n * on_card for key, n in self.calls["backward"].items()})
-        loop_cond.countdown_launches += self.chunks + on_card
-        return st.state["film"].clone(), {n: g.clone() for n, g in st.grads.items()}, rays
+        _add_launches({key: n * on_card for key, n in self.calls.get("backward", {}).items()})
+        loop_cond.countdown_launches += self._backward_launches + on_card
+        return out, grads, rays
 
     def close(self):
         if self.chains:
             torch.cuda.synchronize()
         _destroy(self.chains)
-        self.bodies, self.calls, self.reset_graph, self.closed = {}, {}, None, True
+        self.bodies, self.calls, self.reset_graph, self.take_graph, self.closed = {}, {}, None, None, True

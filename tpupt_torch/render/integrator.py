@@ -32,6 +32,8 @@ integrators (render/diff.py).
 
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
 from ..core import linalg as la
@@ -311,9 +313,12 @@ class StreamStages:
     tensors made once and updated in place, so that every part of a launch is a fixed
     sequence of device work on fixed shapes and addresses, which render/graph.py captures:
 
-    - ``reset()``: stage 0 to the state before the first iteration (pixels, rows, cols
-      and first samples are the launch's inputs, written by ``set_inputs``); the film
-      bank and the counters to zero;
+    - ``set_inputs(...)``: the launch's inputs into static tensors: pixels, rows, cols and
+      first samples, the seed (a 0-d int64 tensor) and the camera's values (the stages
+      keep a copy of the camera's tensors), so that one capture serves every seed and
+      camera of the launch's shape;
+    - ``reset()``: stage 0 to the state before the first iteration; the film bank and the
+      counters to zero;
     - ``step(i)``: one iteration of stage i (``_stream_step``, then ``copy_`` back into
       the state), its ray count added to ``rays`` on the device;
     - ``cond(i, bump)``: the stage's condition on the device, the lanes with work > its
@@ -326,9 +331,10 @@ class StreamStages:
     stage runner on the CPU, which the tests hold bit-equal to trace_film_streamed.
     """
 
-    def __init__(self, sd, cam, b, spp_limit, seed, k, max_depth, has_lights, device):
-        self.sd, self.cam = sd, cam
-        self.spp_limit, self.seed, self.k, self.max_depth, self.has_lights = spp_limit, seed, k, max_depth, has_lights
+    def __init__(self, sd, cam, b, spp_limit, k, max_depth, has_lights, device):
+        self.sd, self.cam = sd, static_camera(cam, device)
+        self.spp_limit, self.k, self.max_depth, self.has_lights = spp_limit, k, max_depth, has_lights
+        self.seed = torch.zeros((), dtype=torch.int64, device=device)
         self.p_light, self.p_bsdf = _mis_probs(has_lights)
         self.thresholds = compaction_thresholds(b, sd.has_tri_clusters or sd.has_tri_clusters_hbm)
         sizes = [b] + self.thresholds[:-1]
@@ -341,10 +347,13 @@ class StreamStages:
         self.rays = torch.zeros(1, dtype=torch.int64, device=device)
         self.iters = torch.zeros(len(sizes), dtype=torch.int64, device=device)
 
-    def set_inputs(self, pixel_ids, rows, cols, sample0):
+    def set_inputs(self, pixel_ids, rows, cols, sample0, seed, cam=None):
         s = self.states[0]
         for key, val in (("pix", pixel_ids), ("row", rows), ("col", cols), ("sample0", sample0)):
             s[key].copy_(val)
+        self.seed.fill_(seed)
+        if cam is not None:
+            copy_camera(self.cam, cam)
 
     def reset(self):
         reset_stream_state(self.states[0])
@@ -399,6 +408,19 @@ class StreamStages:
                 self.compact(i)
         self.finish()
         return self.bank, int(self.rays), int(self.iters.sum())
+
+
+def static_camera(cam, device):
+    """A copy of a CameraData on `device` whose tensors a captured graph may read: the
+    stage runners keep one and copy each call's camera into it (``copy_camera``)."""
+    return dataclasses.replace(cam, **{f.name: getattr(cam, f.name).to(device, copy=True)
+                                       for f in dataclasses.fields(cam)})
+
+
+def copy_camera(dst, src):
+    """src's values into dst's tensors, in place."""
+    for f in dataclasses.fields(dst):
+        getattr(dst, f.name).copy_(getattr(src, f.name))
 
 
 def _stream_step(s, sd, cam, spp_limit, seed, k, max_depth, has_lights, p_light, p_bsdf,

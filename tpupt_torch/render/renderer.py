@@ -4,12 +4,13 @@ Counterpart of ``tpupt/render/renderer.py``. The (pixel, sample) space is flatte
 into lanes of fixed-size launches; each launch runs the path-regeneration wavefront
 and its film is accumulated on the host in float64. On a CUDA device a launch is one
 device program, as the reference's jitted launch is: CUDA graphs whose wavefront
-loops run on the card (render/graph.py), captured at a call's first launch and
-replayed by the others. The CPU runs the eager loop (integrator.trace_film_streamed),
-which is also the graphs' plain version (``plain_launches``). Runs on the compiled
-scene's device; with a mesh (parallel/sharding.py), each process traces its own
-sample slice of every launch on its device and the film is all-reduced once a launch,
-outside the graphs.
+loops run on the card (render/graph.py), captured at the first launch of a shape and
+kept on the compiled scene, as ``jax.jit`` keeps ``_chunk_film``: later launches and
+later calls, with any seed and camera, replay them. The CPU runs the eager loop
+(integrator.trace_film_streamed), which is also the graphs' plain version
+(``plain_launches``). Runs on the compiled scene's device; with a mesh
+(parallel/sharding.py), each process traces its own sample slice of every launch on its
+device and the film is all-reduced once a launch, outside the graphs.
 """
 
 from __future__ import annotations
@@ -27,7 +28,7 @@ from ..scene.compile import CompiledScene
 from .camera import Camera
 from .film import tonemap_quantize
 from ..parallel.sharding import Mesh, all_reduce_film
-from .graph import LaunchGraphs
+from .graph import LaunchGraphs, launch_graphs
 from .integrator import trace_film_streamed
 
 
@@ -40,7 +41,8 @@ class RenderStats:
     # wavefront iterations (on the CPU each costs one host sync; on CUDA they run on the
     # card, counted there); under a mesh, this rank's own
     iterations: int = 0
-    # host seconds spent capturing and instantiating the launch's graphs (CUDA; part of wall_s)
+    # host seconds spent capturing and instantiating launch graphs in this call (CUDA; part of
+    # wall_s; 0 when every launch replayed graphs kept from an earlier call)
     capture_s: float = 0.0
 
     @property
@@ -160,9 +162,10 @@ def render_image(
 
     Runs on the device the scene was compiled for (``Scene.compile(device=...)``). On a
     CUDA device each launch runs as CUDA graphs whose wavefront loops run on the card
-    (render/graph.py): captured at the call's first launch of a shape (stats.capture_s)
-    and replayed by the others, one host read a launch; a failure to capture or launch
-    them raises. The CPU runs the eager loop.
+    (render/graph.py): captured at the first launch of a shape (stats.capture_s), kept on
+    the compiled scene and replayed by later launches and calls (made anew when the
+    scene's fields move), one host read a launch; a failure to capture or launch them
+    raises. The CPU runs the eager loop.
 
     rays_per_launch bounds the lane count (pixel block size) of a launch;
     samples_per_launch bounds how many samples each lane streams per launch.
@@ -245,9 +248,10 @@ def render_image(
     # this rank's first sample of a launch, after the launch's first sample
     dev_sample0 = 0 if mesh is None else mesh.index * r * k
     order = _morton_pixel_order(w, h)
-    graphs = LaunchGraphs() if dev.type == "cuda" and not _plain else None
+    graphs = launch_graphs(compiled) if dev.type == "cuda" and not _plain else None
+    capture0 = graphs.capture_s if graphs is not None else 0.0
     t0 = _time.perf_counter()
-    with prof, graphs if graphs is not None else contextlib.nullcontext():
+    with prof:
         for it in range(start_it, total_launches):
             pblk, schunk = divmod(it, n_sample_chunks)
             lo = pblk * pb
@@ -310,7 +314,7 @@ def render_image(
                 print(f"  pixel block {pblk + 1}/{n_pixel_blocks} done", flush=True)
 
     stats.wall_s = _time.perf_counter() - t0
-    stats.capture_s = graphs.capture_s if graphs is not None else 0.0
+    stats.capture_s = graphs.capture_s - capture0 if graphs is not None else 0.0
     if profile_dir is not None:
         os.makedirs(profile_dir, exist_ok=True)
         prof.export_chrome_trace(os.path.join(profile_dir, f"render_rank{0 if mesh is None else mesh.index}.json"))
