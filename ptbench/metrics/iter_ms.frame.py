@@ -1,0 +1,11 @@
+"""iter_ms.frame: the window's sum of RenderStats.wall_s over its sum of wavefront
+iterations, in ms, over full frames (render/integrator.py stages replayed by
+render/graph.py)."""
+
+
+def read(run):
+    if run.workload["traffic"] != "frames":
+        return None
+    done = [c for c in run.calls if c["ok"]]
+    iters = sum(c["iterations"] for c in done)
+    return 1e3 * sum(c["wall_s"] for c in done) / iters if iters else None
