@@ -12,6 +12,8 @@ within 1% (the card's transcendentals differ from the CPU's by an ulp, which
 flips a rare branch).
 """
 
+import json
+
 import torch_cpu_warmup  # noqa: F401  (MKL's first vector-math call, on one thread)
 import numpy as np
 import pytest
@@ -807,8 +809,107 @@ def test_graph_route_bit_equal_to_eager_loop(cuda, which):
         _, m_e, st_e = render_image(compiled, cam, progress=False)
     np.testing.assert_array_equal(m_g, m_e)
     assert (st_g.rays, st_g.iterations) == (st_e.rays, st_e.iterations)
+    assert (st_g.work_lanes, st_g.lane_slots) == (st_e.work_lanes, st_e.lane_slots)
+    assert st_g.work_lanes == st_g.rays and st_g.device_s > 0 == st_e.device_s
     assert launched == st_g.iterations > 0
     assert conds >= st_g.iterations and st_g.capture_s > 0
+
+
+def _card_in(rec, inner, outer, slack=0):
+    """inner lies within outer, give or take the clock's calibrated error and `slack` ns."""
+    err = rec.clock[1] + slack
+    return outer.start - err <= inner.start <= inner.end <= outer.end + err
+
+
+def test_card_intervals_lie_in_their_waits(cuda):
+    """Under a recording, the card's stamps: every launch's card.chain lies within its
+    render.wait span, its stages one after another within it; a gradient call's card.forward
+    within its chunk's span, its card.backward after its chunk's launch and before the call's
+    end; the stats' device seconds are the intervals' sums."""
+    from tpupt_torch import trace
+    from tpupt_torch.ops import loop_cond
+    from tpupt_torch.render.diff import render_film_grads
+
+    compiled, cam = _graph_scene("K1", cuda)
+    gc, gcam = _grad_case("cornell", cuda)
+    stamped = loop_cond.stamp_launches
+    with trace.recording() as rec:
+        stats = [render_image(compiled, cam, progress=False)[2] for _ in range(2)]
+        gstats = [render_film_grads(gc, gcam, return_stats=True)[2] for _ in range(2)]
+    stamped = loop_cond.stamp_launches - stamped
+    assert rec.clock is not None and 0 <= rec.clock[1] < 1_000_000
+    by_id = {s.id: s for s in rec.spans}
+    waits = rec.named("render.wait")
+    assert len(waits) == sum(st.launches for st in stats)
+    for w in waits:
+        (chain,) = [c for c in rec.children(w, "card") if c.name == "card.chain"]
+        stages = sorted((c for c in rec.children(w, "card") if c.name != "card.chain"), key=lambda c: c.name)
+        assert stages and _card_in(rec, chain, w)
+        assert chain.start == stages[0].start and all(a.end == b.start for a, b in zip(stages, stages[1:]))
+        assert all(chain.start <= c.start <= c.end <= chain.end for c in stages)
+    chains = rec.named("card.chain")
+    assert sum(c.ns for c in chains) * 1e-9 == pytest.approx(sum(st.device_s for st in stats), rel=1e-9)
+    for c in rec.named("card.forward"):
+        assert by_id[c.parent].name == "grads.forward.chunk" and _card_in(rec, c, by_id[c.parent])
+    grads = rec.named("grads")
+    for c in rec.named("card.backward"):
+        chunk = by_id[c.parent]
+        call = by_id[c.call]
+        assert chunk.name == "grads.backward.chunk" and call in grads
+        assert chunk.start - rec.clock[1] <= c.start <= c.end <= call.end + rec.clock[1]
+    fwd, bwd = rec.named("card.forward"), rec.named("card.backward")
+    assert len(fwd) == sum(g.chunks for g in gstats) and bwd
+    # each chain's stamps counted apart from K5: a render chain's n - start + 2, a gradient chain's 2
+    assert stamped == sum(len(rec.children(w, "card")) + 1 for w in waits) + 2 * (len(fwd) + len(bwd))
+    assert sum(c.ns for c in fwd) * 1e-9 == pytest.approx(sum(g.device_forward_s for g in gstats), rel=1e-9)
+    assert sum(c.ns for c in bwd) * 1e-9 == pytest.approx(sum(g.device_backward_s for g in gstats), rel=1e-9)
+
+
+def test_profiler_kernels_of_a_chain_fall_inside_its_wait(cuda, tmp_path):
+    """render_image(profile_dir=...) merges the program's spans into torch.profiler's trace. CUPTI
+    records the chain's stamp kernels, whose reads of the card's clock the program places on
+    the host's: their offset from CUPTI's own times is one constant (within 20 us) through a
+    launch, and with the clocks aligned by it every kernel CUPTI records for the chain's launch
+    (by its correlation id) lies within 100 us of that launch's render.wait span."""
+    compiled, cam = _graph_scene("K1", cuda)
+    render_image(compiled, cam, progress=False)  # the graphs' capture, outside the trace
+    render_image(compiled, cam, progress=False, profile_dir=str(tmp_path))
+    events = json.loads((tmp_path / "render_rank0.json").read_text())["traceEvents"]
+    ours = [e for e in events if e.get("cat") == "tpupt_torch"]
+    waits = {e["args"]["id"]: e for e in ours if e["name"] == "render.wait"}
+    assert waits
+    for wid, w in waits.items():
+        cards = [e for e in ours if e["tid"] == "card" and e["args"]["parent"] == wid]
+        (chain,) = [e for e in cards if e["name"] == "card.chain"]
+        ends = [e["ts"] + e["dur"] for e in cards if e is not chain]
+        stamps = sorted([chain["ts"], chain["ts"] + chain["dur"], *ends])  # the chain's stamps, host clock
+        corr = {e["args"]["correlation"] for e in events if e.get("cat") == "cuda_runtime"
+                and e.get("name", "").startswith("cudaGraphLaunch") and w["ts"] <= e["ts"] <= w["ts"] + w["dur"]}
+        kernels = [e for e in events if e.get("cat") == "kernel" and e.get("args", {}).get("correlation") in corr]
+        recorded = sorted(e["ts"] for e in kernels if "stamp_kernel" in e["name"])
+        assert len(recorded) == len(stamps), (recorded, stamps)
+        offsets = [a - b for a, b in zip(stamps, recorded)]
+        assert max(offsets) - min(offsets) < 20, offsets
+        shift = sorted(offsets)[len(offsets) // 2]
+        for k in kernels:
+            assert w["ts"] - 100 <= k["ts"] + shift <= k["ts"] + k["dur"] + shift <= w["ts"] + w["dur"] + 100, \
+                (k["name"], k["ts"], shift, w)
+
+
+def test_the_profilers_device_ops_hold_no_program_span(cuda):
+    """The benchmark's traced window (ptbench/core/profile.py) under a recording: the spans are
+    not profiler events, so its device operations name no span of the program."""
+    from ptbench.core.profile import traced
+    from tpupt_torch import trace
+
+    compiled, cam = _graph_scene("K1", cuda)
+    render_image(compiled, cam, progress=False)
+    with trace.recording() as rec:
+        prof = traced(lambda: render_image(compiled, cam, progress=False))
+    names = {s.name for s in rec.spans}
+    assert "render.wait" in names
+    ops = [n for n, _ in prof["breakdown"]["device_ops"]]
+    assert ops and not any("tpupt" in n or n in names for n in ops)
 
 
 def test_graph_replays_equal_their_first_launch(cuda):

@@ -16,6 +16,8 @@ names follow the reference so each part has an obvious counterpart:
     csrc/      CUDA C++ kernel sources and the C++ host library (OBJ parse,
                Morton and SAH builds), built at first use by build.py; native.py
                binds the latter
+    trace.py   spans of the program's work, and the card's stamps inside its CUDA
+               graphs, on one clock (recorded only within trace.recording())
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``; without
 a GPU they raise instead of falling back to the CPU.

@@ -16,6 +16,8 @@ import os
 import shutil
 import subprocess
 
+from . import trace
+
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "_build")
@@ -94,9 +96,13 @@ def build_all(names) -> dict[str, str]:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The ctypes library `name`, built first if needed."""
+    """The ctypes library `name`, built first if needed. Its first load in a process is the
+    span ``build.load`` (attrs: lib, and built: the compiler that ran, or "cached")."""
     if name not in _loaded:
-        path, job = _start(name)
-        _finish(name, path, job)
-        _loaded[name] = ctypes.CDLL(path)
+        with trace.span("build.load", lib=name) as sp:
+            path, job = _start(name)
+            _finish(name, path, job)
+            _loaded[name] = ctypes.CDLL(path)
+            if sp is not None:
+                sp.attrs["built"] = "cached" if job is None else _source(name)[2]
     return _loaded[name]

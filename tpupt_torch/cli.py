@@ -11,6 +11,7 @@ Usage: python -m tpupt_torch.cli -s 3                  # 600 px, 100 spp on cuda
 from __future__ import annotations
 
 import argparse
+import contextlib
 import inspect
 import os
 
@@ -39,7 +40,8 @@ def main(argv=None):
         type=str,
         default=None,
         metavar="DIR",
-        help="write a torch.profiler Chrome trace of the render to DIR (one a rank)",
+        help="write a Chrome trace of the render to DIR (one a rank): torch.profiler's events, "
+        "the program's spans from the scene's build on, and the card's intervals in its graphs",
     )
     ap.add_argument(
         "--debug-checks",
@@ -104,19 +106,24 @@ def main(argv=None):
                 print(f"--hdr-env: scene {args.scene} has no environment map; ignoring")
         else:
             kwargs["hdr_env"] = True
-    scene, camera = build(width, spp, **kwargs)
-    compiled = scene.compile(device=device)
-    img, _, stats = render_image(
-        compiled,
-        camera,
-        seed=args.seed,
-        rays_per_launch=args.rays_per_launch,
-        checkpoint_path=args.checkpoint,
-        profile_dir=args.profile,
-        debug_checks=args.debug_checks,
-        mesh=mesh,
-        progress=lead,
-    )
+    with contextlib.ExitStack() as stack:
+        if args.profile is not None:  # the trace shows set-up too: builds, the scene's compile
+            from .trace import recording
+
+            stack.enter_context(recording())
+        scene, camera = build(width, spp, **kwargs)
+        compiled = scene.compile(device=device)
+        img, _, stats = render_image(
+            compiled,
+            camera,
+            seed=args.seed,
+            rays_per_launch=args.rays_per_launch,
+            checkpoint_path=args.checkpoint,
+            profile_dir=args.profile,
+            debug_checks=args.debug_checks,
+            mesh=mesh,
+            progress=lead,
+        )
     if not lead:
         return 0
     save_png(out_path, img)

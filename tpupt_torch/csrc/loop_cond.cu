@@ -19,7 +19,15 @@
 //   countdown (countdown_kernel) a backward trip: bump takes one from the trip index and
 //             adds one to the replay counter; go = index >= chunk[0], the chunk's first trip.
 // Outputs out [2] i64: the lanes with work and go (stage, gate); the index and go
-// (countdown). Inside a graph the kernel also sets the WHILE node's condition to go.
+// (countdown). Inside a graph the kernel also sets the WHILE node's condition to go. A
+// stage also adds the lanes with work to its sum work [1] i64 whenever go is 1: over a
+// launch, the lanes with work summed over the iterations the stage ran.
+//
+// Stamps (stamp_kernel, one thread): the card's clock (%globaltimer, ns) into a slot of a
+// device buffer, at a fixed slot or at a device cursor that it advances. The chains take
+// them as kernel nodes (tpupt_loop_graph_add_stamp): the render's at its head, after each
+// stage's WHILE node and after the film; the gradient pass's at the head and the tail of
+// each chain. They ride in the host reads the chains have anyway (render/graph.py).
 //
 // Bound. A work count reads 9 bytes a lane and writes 24 bytes: 3.2 MB at the Cornell
 // launch's 360000 lanes, about 1 us at the card's 3.35 TB/s. Design: one pass over the
@@ -54,6 +62,7 @@ struct CondArgs {
   int n, k, spp_limit, thr;
   unsigned int* scratch;   // [2]: lanes with work so far, blocks done; zero between launches
   long long* iters;        // stage: its iteration counter; gate: the trip counter
+  long long* work;         // stage: its sum of lanes with work over go decisions (may be null)
   long long* out;          // [2]: lanes with work, go
   int bump;
   int mode;                // MODE_STAGE or MODE_GATE
@@ -102,6 +111,7 @@ cond_kernel(CondArgs a, cudaGraphConditionalHandle handle, int set_handle) {
     go = t < a.cap && t < a.chunk[1] && (t % a.segment != 0 || total > 0);
   } else {
     go = total > static_cast<long long>(a.thr);
+    if (go && a.work) *a.work += total;
   }
   a.out[0] = total;
   a.out[1] = go ? 1 : 0;
@@ -121,6 +131,21 @@ __global__ void countdown_kernel(CountdownArgs a, cudaGraphConditionalHandle han
   if (set_handle) cudaGraphSetConditional(handle, go ? 1u : 0u);
 }
 
+// The card's clock into slots[slot]; with a cursor, into slots[*cursor] (dropped at n or
+// past it) and the cursor advanced.
+__global__ void stamp_kernel(long long* slots, int slot, long long* cursor, int n) {
+  if (blockIdx.x != 0 || threadIdx.x != 0) return;
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  if (cursor == nullptr) {
+    slots[slot] = static_cast<long long>(t);
+    return;
+  }
+  const long long i = *cursor;
+  if (i < n) slots[i] = static_cast<long long>(t);
+  *cursor = i + 1;
+}
+
 int blocks_for(int n) {
   int device = 0, sms = 0;
   if (cudaGetDevice(&device) != cudaSuccess ||
@@ -131,16 +156,16 @@ int blocks_for(int n) {
 }
 
 CondArgs stage_args(const unsigned char* alive, const int* sample, const int* sample0, int n, int k,
-                    int spp_limit, int thr, unsigned int* scratch, long long* iters, long long* out,
-                    int bump) {
-  return CondArgs{alive, sample, sample0, n, k, spp_limit, thr, scratch, iters, out, bump,
+                    int spp_limit, int thr, unsigned int* scratch, long long* iters, long long* work,
+                    long long* out, int bump) {
+  return CondArgs{alive, sample, sample0, n, k, spp_limit, thr, scratch, iters, work, out, bump,
                   MODE_STAGE, 1, 0, nullptr};
 }
 
 CondArgs gate_args(const unsigned char* alive, const int* sample, const int* sample0, int n, int k,
                    int spp_limit, int segment, long long cap, long long* trips, const long long* chunk,
                    unsigned int* scratch, long long* out, int bump) {
-  return CondArgs{alive, sample, sample0, n, k, spp_limit, 0, scratch, trips, out, bump,
+  return CondArgs{alive, sample, sample0, n, k, spp_limit, 0, scratch, trips, nullptr, out, bump,
                   MODE_GATE, segment, cap, chunk};
 }
 
@@ -253,9 +278,11 @@ int census(cudaGraph_t graph, int* counts, int n_types) {
 // comparisons with their plain versions, and the gradient pass's eager first trips.
 extern "C" int tpupt_stage_cond(const unsigned char* alive, const int* sample, const int* sample0,
                                 int n, int k, int spp_limit, int thr, unsigned int* scratch,
-                                long long* iters, long long* out, int bump, void* stream) {
+                                long long* iters, long long* work, long long* out, int bump,
+                                void* stream) {
   if (n < 0 || thr < 0) return static_cast<int>(cudaErrorInvalidValue);
-  const CondArgs a = stage_args(alive, sample, sample0, n, k, spp_limit, thr, scratch, iters, out, bump);
+  const CondArgs a = stage_args(alive, sample, sample0, n, k, spp_limit, thr, scratch, iters, work, out,
+                                bump);
   cond_kernel<<<blocks_for(n), THREADS, 0, static_cast<cudaStream_t>(stream)>>>(a, 0, 0);
   return static_cast<int>(cudaGetLastError());
 }
@@ -275,6 +302,12 @@ extern "C" int tpupt_grad_countdown(long long* index, const long long* chunk, lo
                                     long long* out, int bump, void* stream) {
   const CountdownArgs a{index, chunk, replays, out, bump};
   countdown_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>(a, 0, 0);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The stamp kernel launched on its own: the clock's calibration against the host's.
+extern "C" int tpupt_stamp(long long* slots, int slot, void* stream) {
+  stamp_kernel<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>(slots, slot, nullptr, 0);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -299,14 +332,29 @@ extern "C" int tpupt_loop_graph_add_child(void* handle, void* child) {
   return static_cast<int>(err);
 }
 
+// Append a stamp: the card's clock into slots[slot], or with a cursor (non-null) into
+// slots[*cursor] (n slots) and the cursor advanced.
+extern "C" int tpupt_loop_graph_add_stamp(void* handle, long long* slots, int slot, long long* cursor,
+                                          int n) {
+  LoopGraph* g = static_cast<LoopGraph*>(handle);
+  if (slot < 0 || n < 0) return static_cast<int>(cudaErrorInvalidValue);
+  void* params[] = {&slots, &slot, &cursor, &n};
+  cudaGraphNode_t node;
+  const cudaError_t err = add_kernel_node(&node, g->graph, g->last ? &g->last : nullptr, g->last ? 1 : 0,
+                                          reinterpret_cast<void*>(stamp_kernel), 1, 1, params);
+  if (err == cudaSuccess) g->last = node;
+  return static_cast<int>(err);
+}
+
 // Append a render stage: a WHILE node over `body` under the stage condition.
 extern "C" int tpupt_loop_graph_add_while(void* handle, void* body, const unsigned char* alive,
                                           const int* sample, const int* sample0, int n, int k,
                                           int spp_limit, int thr, unsigned int* scratch,
-                                          long long* iters, long long* out) {
+                                          long long* iters, long long* work, long long* out) {
   if (n < 0 || thr < 0) return static_cast<int>(cudaErrorInvalidValue);
   return add_while(static_cast<LoopGraph*>(handle), static_cast<cudaGraph_t>(body),
-                   AddCond{stage_args(alive, sample, sample0, n, k, spp_limit, thr, scratch, iters, out, 0)});
+                   AddCond{stage_args(alive, sample, sample0, n, k, spp_limit, thr, scratch, iters, work,
+                                      out, 0)});
 }
 
 // Append the gradient pass's forward trips: a WHILE node over `body` under the gate.

@@ -11,6 +11,8 @@ from __future__ import annotations
 
 import numpy as np
 
+from .. import trace
+
 
 def load_obj(path: str, native: bool = True):
     """Parse an OBJ file.
@@ -23,8 +25,14 @@ def load_obj(path: str, native: bool = True):
 
     Prefers the host library (tpupt_torch/native.py); this Python parser is the
     fallback and the oracle for tests. A missing file raises FileNotFoundError
-    (the native parser returns None for it and the fallback's open raises).
+    (the native parser returns None for it and the fallback's open raises). The span
+    ``scene.obj``.
     """
+    with trace.span("scene.obj"):
+        return _load_obj(path, native)
+
+
+def _load_obj(path, native):
     if native:
         from .. import native as _native
 

@@ -15,7 +15,8 @@ Each launches its kernel for CUDA tensors and runs its ``*_plain`` version for C
 tensors, with no fallback from one to the other. ``launches``, ``gate_launches`` and
 ``countdown_launches`` count the kernels' launches: the wrappers' own, and those inside
 a graph, which render/graph.py adds from the graph's device counters after every launch
-of it.
+of it. ``stamp_launches`` counts apart the stamps of the card's clock in the chains
+(``tpupt_loop_graph_add_stamp``; tpupt_torch/trace.py reads them).
 """
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ import torch
 launches = 0  # stage condition launches since the last reset (plain-version calls not counted)
 gate_launches = 0  # the gradient pass's gate, the same way
 countdown_launches = 0  # the gradient pass's countdown, the same way
+stamp_launches = 0  # stamps of the card's clock run in the chains (never counted in the above)
 
 # the CUDA runtime's cudaGraphNodeType values; a loop's captured body may hold BODY_NODE_TYPES
 NODE_TYPES = {0: "kernel", 1: "memcpy", 2: "memset", 3: "host", 4: "graph", 5: "empty",
@@ -47,12 +49,14 @@ def lib() -> ctypes.CDLL:
         lib_ = build.load("loop_cond")
         P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         sig = {
-            "tpupt_stage_cond": [P, P, P, I, I, I, I, P, P, P, I, P],
+            "tpupt_stage_cond": [P, P, P, I, I, I, I, P, P, P, P, I, P],
             "tpupt_grad_gate": [P, P, P, I, I, I, I, L, P, P, P, P, I, P],
             "tpupt_grad_countdown": [P, P, P, P, I, P],
             "tpupt_loop_graph_create": [ctypes.POINTER(ctypes.c_void_p)],
             "tpupt_loop_graph_add_child": [P, P],
-            "tpupt_loop_graph_add_while": [P, P, P, P, P, I, I, I, I, P, P, P],
+            "tpupt_loop_graph_add_while": [P, P, P, P, P, I, I, I, I, P, P, P, P],
+            "tpupt_loop_graph_add_stamp": [P, P, I, P, I],
+            "tpupt_stamp": [P, I, P],
             "tpupt_loop_graph_add_gate_while": [P, P, P, P, P, I, I, I, I, L, P, P, P, P],
             "tpupt_loop_graph_add_countdown_while": [P, P, P, P, P, P],
             "tpupt_loop_graph_instantiate": [P],
@@ -102,19 +106,23 @@ def _check_counters(who, device, **counters):
                              f"{tuple(x.shape)} {x.dtype} on {x.device}")
 
 
-def stage_cond(alive, sample, sample0, k, spp_limit, thr, iters=None, bump=False, out=None, scratch=None):
+def stage_cond(alive, sample, sample0, k, spp_limit, thr, iters=None, bump=False, out=None, scratch=None,
+               work=None):
     """The stage's condition -> out [2] int64: the lanes with work, and go = (that count
-    > thr). bump adds one to iters ([1] int64). CUDA tensors launch the kernel (which in
-    a graph also sets the WHILE node's condition); CPU tensors run `stage_cond_plain`.
-    On CUDA, out ([2] int64) and scratch ([2] int32, zero, and left zero by the kernel)
-    may be given, else they are made for the call."""
+    > thr). bump adds one to iters ([1] int64); when go, the count is added to work ([1]
+    int64), if given. CUDA tensors launch the kernel (which in a graph also sets the WHILE
+    node's condition); CPU tensors run `stage_cond_plain`. On CUDA, out ([2] int64) and
+    scratch ([2] int32, zero, and left zero by the kernel) may be given, else they are made
+    for the call."""
     _check(alive, sample, sample0, k, spp_limit, thr)
     if bump and (iters is None or iters.shape != (1,) or iters.dtype != torch.int64
                  or iters.device != alive.device):
         raise ValueError("stage_cond: bump needs iters, a [1] int64 tensor on the lanes' device")
+    if work is not None:
+        _check_counters("stage_cond", alive.device, work=(work, 1))
     if alive.device.type == "cpu":
-        return stage_cond_plain(alive, sample, sample0, k, spp_limit, thr, iters, bump)
-    return _launch(alive, sample, sample0, k, spp_limit, thr, iters, bump, out, scratch)
+        return stage_cond_plain(alive, sample, sample0, k, spp_limit, thr, iters, bump, work)
+    return _launch(alive, sample, sample0, k, spp_limit, thr, iters, bump, out, scratch, work)
 
 
 def _stream(dev):
@@ -122,7 +130,7 @@ def _stream(dev):
         return torch.cuda.current_stream().cuda_stream
 
 
-def _launch(alive, sample, sample0, k, spp_limit, thr, iters, bump, out, scratch):
+def _launch(alive, sample, sample0, k, spp_limit, thr, iters, bump, out, scratch, work):
     global launches
     dev = alive.device
     if scratch is None:
@@ -132,7 +140,8 @@ def _launch(alive, sample, sample0, k, spp_limit, thr, iters, bump, out, scratch
     stream = _stream(dev)
     err = lib().tpupt_stage_cond(
         alive.data_ptr(), sample.data_ptr(), sample0.data_ptr(), alive.shape[0], k, spp_limit, thr,
-        scratch.data_ptr(), iters.data_ptr() if iters is not None else None, out.data_ptr(), int(bump), stream,
+        scratch.data_ptr(), iters.data_ptr() if iters is not None else None,
+        work.data_ptr() if work is not None else None, out.data_ptr(), int(bump), stream,
     )
     check(err, "stage_cond: the launch")
     launches += 1
@@ -144,12 +153,15 @@ def work_mask(alive, sample, sample0, k, spp_limit):
     return alive | ((sample < k) & ((sample0 + sample) < spp_limit))
 
 
-def stage_cond_plain(alive, sample, sample0, k, spp_limit, thr, iters=None, bump=False):
+def stage_cond_plain(alive, sample, sample0, k, spp_limit, thr, iters=None, bump=False, work=None):
     """The kernel's function in eager PyTorch."""
     n = work_mask(alive, sample, sample0, k, spp_limit).sum()
     if bump:
         iters.add_(1)
-    return torch.stack([n, (n > thr).to(torch.int64)])
+    go = n > thr
+    if work is not None:
+        work.add_(torch.where(go, n, 0))
+    return torch.stack([n, go.to(torch.int64)])
 
 
 def grad_gate(alive, sample, sample0, k, spp_limit, segment, cap, trips, chunk, bump=False, out=None,

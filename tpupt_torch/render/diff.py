@@ -47,6 +47,7 @@ import time as _time
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from .. import trace
 from ..core.dtypes import REAL
 from ..ops import bvh_kernel, hit_kernel, loop_cond, tri_kernel
 from .camera import generate_rays
@@ -354,8 +355,9 @@ class TripStages:
 
     def stash(self, n):
         """The first n staging rows copied into a store of their own (one copy)."""
-        store = torch.empty((n, self.row_bytes), dtype=torch.uint8, device=self.staging.device)
-        store.copy_(self.staging[:n])
+        with trace.span("grads.stash"):
+            store = torch.empty((n, self.row_bytes), dtype=torch.uint8, device=self.staging.device)
+            store.copy_(self.staging[:n])
         return store
 
     def begin_backward(self, c0, n, store=None):
@@ -406,8 +408,9 @@ class TripStages:
         if mesh is None:
             while chunks:
                 c0, n, store = chunks.pop()
-                self.begin_backward(c0, n, store)
-                replay()
+                with trace.span("grads.backward.chunk"):
+                    self.begin_backward(c0, n, store)
+                    replay()
             return None
         ran = chunks[-1][0] + chunks[-1][1] if chunks else 0
         reduced, staged = [], None
@@ -415,12 +418,13 @@ class TripStages:
             if t0 >= ran:
                 flat = torch.zeros_like(self.flat)
             else:
-                if staged is None or t0 < staged:
-                    c0, n, store = chunks.pop()
-                    self.begin_backward(c0, n, store)
-                    staged = c0
-                self.chunk[0].fill_(t0)
-                replay()
+                with trace.span("grads.backward.chunk"):
+                    if staged is None or t0 < staged:
+                        c0, n, store = chunks.pop()
+                        self.begin_backward(c0, n, store)
+                        staged = c0
+                    self.chunk[0].fill_(t0)
+                    replay()
                 flat = take().clone()
             reduced.append((flat, mesh.all_reduce(flat, async_op=True)))
         total = torch.zeros_like(self.flat)
@@ -637,6 +641,10 @@ class GradStats:
     capture_s: float = 0.0
     host_reads: int = 0  # reads of device values by the host: a segment (eager), a chunk + 1 (graphs)
     chunks: int = 0  # chunks of forward trips (graphs; the eager route has none)
+    # the card's time in the forward and backward chains, from their stamps of the card's clock
+    # (graphs; 0 on the eager route)
+    device_forward_s: float = 0.0
+    device_backward_s: float = 0.0
 
 
 def _sync(dev):
@@ -683,48 +691,58 @@ def render_film_grads(
     On CUDA the pass runs as CUDA graphs (render/graph.py, ``grad_graphs``), kept on the
     compiled scene for later calls of the same configuration (seed, cotangent and the
     parameters' values are inputs); within ``plain_grads()``, and on the CPU, it runs the
-    eager route. The film and the gradients are the caller's own tensors either way.
+    eager route, as one forward and one backward chunk. The film and the gradients are the
+    caller's own tensors either way.
     """
-    sd = compiled.data
-    dev = sd.device
-    cam = camera.init(dev)
-    w, h = camera.image_width, camera.image_height
-    spp = camera.samples_per_pixel if spp is None else spp
-    npix = w * h
-    pix, rows, cols, lane_sample0, cot, r, k = film_lanes(camera, spp, replicas, cotangent, dev)
-    stats = GradStats(lanes=pix.shape[0])
-    before = _kernel_launches()
-    t0 = _time.perf_counter()
-    if dev.type == "cuda" and not _plain:
-        from .graph import grad_graphs
+    with trace.span("grads") as call:
+        sd = compiled.data
+        dev = sd.device
+        w, h = camera.image_width, camera.image_height
+        spp = camera.samples_per_pixel if spp is None else spp
+        npix = w * h
+        with trace.span("grads.inputs"):
+            cam = camera.init(dev)
+            pix, rows, cols, lane_sample0, cot, r, k = film_lanes(camera, spp, replicas, cotangent, dev)
+            params = init_params(sd)
+        stats = GradStats(lanes=pix.shape[0])
+        before = _kernel_launches()
+        t0 = _time.perf_counter()
+        if dev.type == "cuda" and not _plain:
+            from .graph import grad_graphs
 
-        graphs = grad_graphs(compiled, camera, cam, pix.shape[0], spp, k, r, segment_size)
-        stats.trips = graphs.forward(pix, rows, cols, lane_sample0, init_params(sd), cot, seed)
-        t1 = _time.perf_counter()
-        mid = _kernel_launches()
-        film, grads, stats.rays = graphs.backward()
-        stats.capture_s, stats.host_reads, stats.chunks = graphs.capture_s, graphs.host_reads, graphs.chunks
-    else:
-        params = _leaves(init_params(sd))
-        scan_stats = {}
-        with torch.enable_grad():
-            film, stats.rays = trace_film_scan(
-                apply_params(sd, params), cam, pix, rows, cols, lane_sample0, spp, seed, k,
-                camera.max_depth, compiled.has_lights, segment_size=segment_size,
-                with_rays=True, stats=scan_stats,
-            )
-            _sync(dev)
+            with trace.span("grads.inputs"):
+                graphs = grad_graphs(compiled, camera, cam, pix.shape[0], spp, k, r, segment_size)
+            stats.trips = graphs.forward(pix, rows, cols, lane_sample0, params, cot, seed)
             t1 = _time.perf_counter()
             mid = _kernel_launches()
-            grads = _grads((film * cot).sum(), params)
-        stats.trips, stats.host_reads = scan_stats["trips"], scan_stats["host_reads"]
-    _sync(dev)
-    stats.backward_s = _time.perf_counter() - t1
-    stats.forward_s = t1 - t0
-    after = _kernel_launches()
-    stats.launches_forward = {n: mid[n] - before[n] for n in before}
-    stats.launches_backward = {n: after[n] - mid[n] for n in before}
-    mean = (film.detach().reshape(r, npix, 3).sum(0) / spp).reshape(h, w, 3)
+            film, grads, stats.rays = graphs.backward()
+            stats.capture_s, stats.host_reads, stats.chunks = graphs.capture_s, graphs.host_reads, graphs.chunks
+            stats.device_forward_s, stats.device_backward_s = graphs.device_forward_s, graphs.device_backward_s
+        else:
+            params = _leaves(params)
+            scan_stats = {}
+            with torch.enable_grad():
+                with trace.span("grads.forward.chunk"):
+                    film, stats.rays = trace_film_scan(
+                        apply_params(sd, params), cam, pix, rows, cols, lane_sample0, spp, seed, k,
+                        camera.max_depth, compiled.has_lights, segment_size=segment_size,
+                        with_rays=True, stats=scan_stats,
+                    )
+                    _sync(dev)
+                t1 = _time.perf_counter()
+                mid = _kernel_launches()
+                with trace.span("grads.backward.chunk"):
+                    grads = _grads((film * cot).sum(), params)
+            stats.trips, stats.host_reads = scan_stats["trips"], scan_stats["host_reads"]
+        _sync(dev)
+        stats.backward_s = _time.perf_counter() - t1
+        stats.forward_s = t1 - t0
+        after = _kernel_launches()
+        stats.launches_forward = {n: mid[n] - before[n] for n in before}
+        stats.launches_backward = {n: after[n] - mid[n] for n in before}
+        mean = (film.detach().reshape(r, npix, 3).sum(0) / spp).reshape(h, w, 3)
+        if call is not None:
+            call.attrs.update(dataclasses.asdict(stats))
     if return_stats:
         return mean, grads, stats
     return mean, grads
@@ -862,6 +880,11 @@ def render_grads(
     ``_value_and_grad_call``; within ``plain_grads()``, and on the CPU, it runs the eager
     route (checkpointed trips, autograd). The outputs are the caller's own tensors either way.
     """
+    with trace.span("grads"):
+        return _render_grads(compiled, camera, pixel_ids, spp, seed, cotangent, segment_size, return_stats)
+
+
+def _render_grads(compiled, camera, pixel_ids, spp, seed, cotangent, segment_size, return_stats):
     sd = compiled.data
     dev = sd.device
     w = camera.image_width

@@ -9,7 +9,10 @@ stage a conditional WHILE node, whose body is the captured iteration followed by
 condition kernel, set once before the node as well, since ``lax.while_loop`` tests its
 condition before the first body; the captured compactions between the stages. A
 launch is one replay of a small captured reset and one ``cudaGraphLaunch`` of the
-chain; the host reads the launch's counters (rays, iterations a stage) once.
+chain; the host reads the launch's counters (rays, iterations and lanes with work a
+stage) once, and with them the chain's stamps of the card's clock: at its head, after
+each stage's WHILE node and after the film (tpupt_torch/trace.py places them on the
+host's clock as ``card.chain`` and ``card.stage{i}``, a stage with the compaction before it).
 
 The first launch of a shape runs its first wavefront iteration eagerly, which builds
 what the kernels keep between calls (K1's packed tables, K4's wide tree, the packet
@@ -39,7 +42,10 @@ chunk follows. The backward chain is a WHILE node whose body is one trip's repla
 ``autograd.grad``, counting down, launched once a chunk, newest first, after the chunk's
 rows are copied back; under a mesh once a segment, each segment's gradient sums then taken
 by a captured copy and all-reduced outside the graphs (a WHILE body takes kernel, memcpy
-and memset nodes only). The first call of a configuration runs its first forward trip and
+and memset nodes only). Each chain stamps the card's clock at its head and its tail: the
+forward chain's stamps ride in the chunk's host read, the backward chain's (at a device
+cursor, one launch after another) in the call's last read (``card.forward``,
+``card.backward``). The first call of a configuration runs its first forward trip and
 its first replay eagerly (they make what may not be made under capture) and captures; the
 graphs stay on the compiled scene or the SceneData (``grad_graphs``, ``radiance_graphs``),
 so later calls with another seed, cotangent or parameter values replay them, unless the
@@ -55,6 +61,7 @@ import weakref
 
 import torch
 
+from .. import trace
 from ..core.dtypes import REAL
 from ..ops import bvh_kernel, hit_kernel, loop_cond, tri_kernel
 from .diff import DIFF_FIELDS, RADIANCE_SAVED, FilmScanStages, RadianceScanStages, chunk_trips
@@ -153,14 +160,15 @@ class LaunchGraphs:
         self.capture_s = 0.0  # capture and instantiation, host seconds, summed over launches
 
     def run(self, sd, cam, pix, rows, cols, lane_sample0, n_work0, *, spp_limit, seed, k, r, max_depth,
-            has_lights):
+            has_lights, counts=None):
         """One launch -> (film sum [B/r, 3] on the device, rays int, iterations int).
 
         pix, rows, cols, lane_sample0 [B] are the launch's lanes (r lanes a pixel);
         n_work0 is the count of lanes that start with a sample to take (lane_sample0 <
         spp_limit), known to the host. The film is a buffer of the graphs: valid until the
         next launch of the same shape. Graphs whose scene moved since their capture
-        (``_stamp``) are dropped and made anew.
+        (``_stamp``) are dropped and made anew. counts (a dict), if given, gets the launch's
+        "work_lanes", "lane_slots" and "device_s" added (``_Launch.run``).
         """
         if n_work0 == 0:  # no lane starts a sample: nothing to trace
             return torch.zeros((pix.shape[0] // r, 3), dtype=REAL, device=pix.device), 0, 0
@@ -173,7 +181,7 @@ class LaunchGraphs:
             launch = self._launches[key] = _Launch(self, sd, cam, pix.shape[0], spp_limit, k, r, max_depth,
                                                    has_lights, pix.device)
         try:
-            return launch.run(pix, rows, cols, lane_sample0, n_work0, seed, cam)
+            return launch.run(pix, rows, cols, lane_sample0, n_work0, seed, cam, counts)
         except BaseException:
             if launch.reset_graph is None:  # its capture failed: the next launch makes new graphs
                 del self._launches[key]
@@ -213,6 +221,8 @@ class _Launch:
         self.film = torch.empty((b // r, 3), dtype=self.st.bank.dtype, device=device)
         self.scratch = torch.zeros(2, dtype=torch.int32, device=device)  # the condition kernel's
         self.cond_out = torch.zeros(2, dtype=torch.int64, device=device)
+        # the card's clock at the chain's head (0), after stage i's WHILE node (i + 1), after the film
+        self.stamps = torch.zeros(len(self.st.states) + 2, dtype=torch.int64, device=device)
         self.stream = torch.cuda.Stream(device)
         self.pool = torch.cuda.graph_pool_handle()
         self.reset_graph = None
@@ -250,23 +260,37 @@ class _Launch:
         handle = self.parents.get(start)
         if handle is not None:
             return handle
+        with trace.span("render.capture"):
+            return self._make_parent(start)
+
+    def _make_parent(self, start):
         t0 = _time.perf_counter()
         lib, st = loop_cond.lib(), self.st
         handle = ctypes.c_void_p()
         loop_cond.check(lib.tpupt_loop_graph_create(ctypes.byref(handle)), "render graph: creating the chain")
+        n = len(st.states)
+
+        def stamp(slot):
+            loop_cond.check(lib.tpupt_loop_graph_add_stamp(handle, self.stamps.data_ptr(), slot, None, 0),
+                            f"render graph: adding the stamp of slot {slot}")
+
         try:
-            for i in range(start, len(st.states)):
+            stamp(0)
+            for i in range(start, n):
                 s = st.states[i]
                 loop_cond.check(lib.tpupt_loop_graph_add_while(
                     handle, self.bodies[i].raw_cuda_graph(), s["alive"].data_ptr(), s["sample"].data_ptr(),
                     s["sample0"].data_ptr(), s["alive"].shape[0], st.k, st.spp_limit, st.thresholds[i],
-                    self.scratch.data_ptr(), st.iters[i : i + 1].data_ptr(), self.cond_out.data_ptr(),
+                    self.scratch.data_ptr(), st.iters[i : i + 1].data_ptr(), st.work[i : i + 1].data_ptr(),
+                    self.cond_out.data_ptr(),
                 ), f"render graph: adding the WHILE node of stage {i}")
+                stamp(i + 1)
                 if i < len(self.compactions):
                     loop_cond.check(lib.tpupt_loop_graph_add_child(handle, self.compactions[i].raw_cuda_graph()),
                                     f"render graph: adding the compaction after stage {i}")
             loop_cond.check(lib.tpupt_loop_graph_add_child(handle, self.finish.raw_cuda_graph()),
                             "render graph: adding the launch's film")
+            stamp(n + 1)
             loop_cond.check(lib.tpupt_loop_graph_instantiate(handle), "render graph: instantiating the chain")
         except BaseException:
             lib.tpupt_loop_graph_destroy(handle)
@@ -289,6 +313,7 @@ class _Launch:
                 st.compact(i)
             st.step(start)  # the launch's first iteration, with every kernel launched for real
             st.iters[start] += 1
+            st.work[start] += n_work0  # what the stage's condition would have counted
             torch.cuda.synchronize()
             t0 = _time.perf_counter()
             try:
@@ -300,25 +325,41 @@ class _Launch:
         torch.cuda.current_stream().wait_stream(self.stream)
         return start
 
-    def run(self, pix, rows, cols, lane_sample0, n_work0, seed, cam):
+    def run(self, pix, rows, cols, lane_sample0, n_work0, seed, cam, counts=None):
         st = self.st
-        st.set_inputs(pix, rows, cols, lane_sample0, seed, cam)
-        eager = [0] * len(st.states)
+        n = len(st.states)
+        with trace.span("render.inputs"):
+            st.set_inputs(pix, rows, cols, lane_sample0, seed, cam)
+        eager = [0] * n
         if self.reset_graph is None:
-            start = self._first(n_work0)
+            with trace.span("render.capture"):
+                start = self._first(n_work0)
             eager[start] = 1
         else:
             start = 0
             self.reset_graph.replay()
         parent = self._parent(start)
         stream = torch.cuda.current_stream().cuda_stream
-        loop_cond.check(loop_cond.lib().tpupt_loop_graph_launch(parent, stream), "render graph: launching the chain")
-        counts = torch.cat([st.rays, st.iters]).tolist()  # the one host read of the launch
-        rays, iters = counts[0], counts[1:]
-        on_card = [n - e for n, e in zip(iters, eager)]
-        calls = {key: sum(c[key] * n for c, n in zip(self.per_iteration, on_card)) for key in self.per_iteration[0]}
+        with trace.span("render.wait") as wait:
+            loop_cond.check(loop_cond.lib().tpupt_loop_graph_launch(parent, stream),
+                            "render graph: launching the chain")
+            read = torch.cat([st.rays, st.iters, st.work, self.stamps]).tolist()  # the one host read of the launch
+        rays, iters, work, stamps = read[0], read[1 : n + 1], read[n + 1 : 2 * n + 1], read[2 * n + 1 :]
+        on_card = [i - e for i, e in zip(iters, eager)]
+        calls = {key: sum(c[key] * i for c, i in zip(self.per_iteration, on_card)) for key in self.per_iteration[0]}
         _add_launches(calls)
-        loop_cond.launches += (len(iters) - start) + sum(on_card)
+        loop_cond.launches += (n - start) + sum(on_card)
+        loop_cond.stamp_launches += n - start + 2
+        slots = [i * size for i, size in zip(iters, st.sizes)]
+        if counts is not None:
+            counts["work_lanes"] = counts.get("work_lanes", 0) + sum(work)
+            counts["lane_slots"] = counts.get("lane_slots", 0) + sum(slots)
+            counts["device_s"] = counts.get("device_s", 0.0) + 1e-9 * (stamps[n + 1] - stamps[0])
+        if wait is not None:
+            trace.card(wait, "card.chain", stamps[0], stamps[n + 1], first_stage=start)
+            for i in range(start, n):
+                trace.card(wait, f"card.stage{i}", stamps[0] if i == start else stamps[i], stamps[i + 1],
+                           iterations=iters[i], work_lanes=work[i], lane_slots=slots[i])
         return self.film, rays, sum(iters)
 
     def close(self):
@@ -385,8 +426,9 @@ class GradGraphs:
     ``FilmScanStages`` or ``RadianceScanStages``, made by make() on the graphs' stream).
 
     A call is ``forward(*inputs)`` (-> trips; inputs as the runner's ``set_inputs``), then
-    ``backward(mesh=None)`` (-> output, grads, rays). capture_s, host_reads, chunks and
-    trips describe the last call.
+    ``backward(mesh=None)`` (-> output, grads, rays). capture_s, host_reads, chunks, trips,
+    device_forward_s and device_backward_s (the card's time in the chains, from their
+    stamps) describe the last call.
     """
 
     def __init__(self, sd, make):
@@ -396,12 +438,20 @@ class GradGraphs:
             self.st = make()
         self.pool = torch.cuda.graph_pool_handle()
         self.reset_graph = self.take_graph = None
+        # the card's clock at the forward chain's head and tail; the backward chain's, a launch
+        # after another at a cursor that the reset zeroes (a launch a chunk, or a segment)
+        dev = sd.device
+        self.stamps_forward = torch.zeros(2, dtype=torch.int64, device=dev)
+        self.stamps_backward = torch.zeros(2 * (self.st.cap // self.st.segment), dtype=torch.int64, device=dev)
+        self.cursor = torch.zeros(1, dtype=torch.int64, device=dev)
         self.bodies, self.calls = {}, {}  # "forward", "backward": captured body, kernel calls in it
         self.chains: dict[str, ctypes.c_void_p] = {}  # "forward", "backward": instantiated chain
         weakref.finalize(self, _destroy, self.chains)
         self.closed = False
         self.capture_s, self.host_reads, self.chunks, self.trips = 0.0, 0, 0, 0
+        self.device_forward_s = self.device_backward_s = 0.0
         self._chunks, self._eager_replays, self._backward_launches = [], 0, 0
+        self._backward_spans = []  # the span open at each backward launch (a recording on)
 
     # -- capture ---------------------------------------------------------------------
 
@@ -415,7 +465,17 @@ class GradGraphs:
         lib, st = loop_cond.lib(), self.st
         handle = ctypes.c_void_p()
         loop_cond.check(lib.tpupt_loop_graph_create(ctypes.byref(handle)), f"gradient graph: creating the {name} chain")
+        if name == "forward":
+            stamps, slots, cursor = self.stamps_forward, (0, 1), None
+        else:
+            stamps, slots, cursor = self.stamps_backward, (0, 0), self.cursor.data_ptr()
+
+        def stamp(slot):
+            loop_cond.check(lib.tpupt_loop_graph_add_stamp(handle, stamps.data_ptr(), slot, cursor, stamps.shape[0]),
+                            f"gradient graph: adding a stamp to the {name} chain")
+
         try:
+            stamp(slots[0])
             body = self.bodies[name].raw_cuda_graph()
             if name == "forward":
                 alive, sample, sample0, k, spp_limit = st.gate_lanes()
@@ -428,6 +488,7 @@ class GradGraphs:
                     handle, body, st.index.data_ptr(), st.chunk.data_ptr(), st.replays.data_ptr(),
                     st.cond_out.data_ptr())
             loop_cond.check(err, f"gradient graph: adding the WHILE node of the {name} trips")
+            stamp(slots[1])
             loop_cond.check(lib.tpupt_loop_graph_instantiate(handle), f"gradient graph: instantiating the {name} chain")
         except BaseException:
             lib.tpupt_loop_graph_destroy(handle)
@@ -438,38 +499,48 @@ class GradGraphs:
         """A call's first trip of a loop that has no chain yet: eagerly, with every kernel
         launched for real (it makes K1's tables, K4's wide tree and the packet counters of
         the capture stream, none of which may be made under capture), then the capture."""
-        trip()
-        cond(bump=True)
-        torch.cuda.synchronize()
-        t0 = _time.perf_counter()
-        try:
-            capture()
-            self._chain(name)
-        except BaseException:  # nothing half-captured is kept: the next call makes new graphs
-            self.close()
-            raise
-        self.capture_s += _time.perf_counter() - t0
+        with trace.span("grads.capture"):
+            trip()
+            cond(bump=True)
+            torch.cuda.synchronize()
+            t0 = _time.perf_counter()
+            try:
+                capture()
+                self._chain(name)
+            except BaseException:  # nothing half-captured is kept: the next call makes new graphs
+                self.close()
+                raise
+            self.capture_s += _time.perf_counter() - t0
 
     def _launch(self, name):
         loop_cond.check(loop_cond.lib().tpupt_loop_graph_launch(self.chains[name], self.stream.cuda_stream),
                         f"gradient graph: launching the {name} trips")
+        loop_cond.stamp_launches += 2
+
+    def _reset(self):
+        self.st.reset()
+        self.cursor.zero_()
 
     # -- a call ----------------------------------------------------------------------
 
     def _forward_chunk(self, c0):
         st = self.st
-        st.begin_chunk(c0)
-        eager = 0
-        if "forward" not in self.chains:
-            def capture():
-                self.reset_graph, _ = _capture("gradient graph: capturing the reset", st.reset, self.pool,
-                                               keep_graph=False)
-                self._capture_body("forward", st.forward_trip)
+        with trace.span("grads.forward.chunk") as sp:
+            st.begin_chunk(c0)
+            eager = 0
+            if "forward" not in self.chains:
+                def capture():
+                    self.reset_graph, _ = _capture("gradient graph: capturing the reset", self._reset, self.pool,
+                                                   keep_graph=False)
+                    self._capture_body("forward", st.forward_trip)
 
-            self._first("forward", st.forward_trip, st.cond_forward, capture)
-            eager = 1
-        self._launch("forward")
-        trips, n_work = torch.cat([st.trips, st.cond_out[:1]]).tolist()  # the host read of the chunk
+                self._first("forward", st.forward_trip, st.cond_forward, capture)
+                eager = 1
+            self._launch("forward")
+            # the host read of the chunk
+            trips, n_work, t0, t1 = torch.cat([st.trips, st.cond_out[:1], self.stamps_forward]).tolist()
+        self.device_forward_s += 1e-9 * (t1 - t0)
+        trace.card(sp, "card.forward", t0, t1, first_trip=c0, trips=trips - c0)
         self.host_reads += 1
         self.chunks += 1
         self.trips = trips
@@ -487,6 +558,7 @@ class GradGraphs:
             self._eager_replays = 1
         self._launch("backward")
         self._backward_launches += 1
+        self._backward_spans.append(trace.current())
 
     def _take(self):
         """The runner's ``take()`` (a segment's gradient sums into its flat tensor, the sums
@@ -503,13 +575,16 @@ class GradGraphs:
             raise RuntimeError("gradient graph: these graphs were closed")
         st = self.st
         self.capture_s, self.host_reads, self.chunks = 0.0, 0, 0
+        self.device_forward_s = self.device_backward_s = 0.0
         self._eager_replays = self._backward_launches = 0
+        self._backward_spans = []
         caller = torch.cuda.current_stream()
         self.stream.wait_stream(caller)
         with torch.cuda.stream(self.stream):
-            st.set_inputs(*inputs)
+            with trace.span("grads.inputs"):
+                st.set_inputs(*inputs)
             if self.reset_graph is None:
-                st.reset()
+                self._reset()
             else:
                 self.reset_graph.replay()
             self._chunks = st.forward_pass(self._forward_chunk)
@@ -525,10 +600,15 @@ class GradGraphs:
         self.stream.wait_stream(caller)
         with torch.cuda.stream(self.stream):
             total = st.backward_pass(self._chunks, self._replay, mesh, self._take)
-            trips, rays, replays = st.counters.tolist()  # the call's last host read
-            grads = ({n: g.clone() for n, g in st.grads.items()} if total is None
-                     else st.split(total))
-            out = st.output().clone()
+            with trace.span("grads.read") as sp:
+                # the call's last host read
+                trips, rays, replays, *stamps = torch.cat([st.counters, self.stamps_backward]).tolist()
+                grads = ({n: g.clone() for n, g in st.grads.items()} if total is None
+                         else st.split(total))
+                out = st.output().clone()
+        for span, t0, t1 in zip(self._backward_spans, stamps[0::2], stamps[1::2]):
+            self.device_backward_s += 1e-9 * (t1 - t0)
+            trace.card(span, "card.backward", t0, t1)
         self.host_reads += 1
         caller.wait_stream(self.stream)
         if replays != trips:

@@ -213,7 +213,7 @@ def compaction_thresholds(b: int, clusters: bool = False) -> list[int]:
 
 
 def trace_film_streamed(
-    sd, cam, pixel_ids, rows, cols, sample0, spp_limit, seed, k, max_depth, has_lights, log=None
+    sd, cam, pixel_ids, rows, cols, sample0, spp_limit, seed, k, max_depth, has_lights, log=None, stages=None
 ):
     """Path-regeneration wavefront: each lane streams up to k samples of its pixel.
 
@@ -228,7 +228,8 @@ def trace_film_streamed(
 
     sample0 is a per-lane tensor. Returns (film_sum [B,3] in the caller's lane
     order, rays_traced int, wavefront iterations int). log (a list), if given, gets
-    (stage, lanes with work) at every host read.
+    (stage, lanes with work) at every host read; stages (a list), if given, gets (lanes,
+    iterations, lanes with work summed over those iterations) of each stage.
     """
     b = pixel_ids.shape[0]
     dev = pixel_ids.device
@@ -243,6 +244,7 @@ def trace_film_streamed(
     bank = torch.zeros((b, 3), **f32)
     iterations = 0
     for stage, thr in enumerate(compaction_thresholds(b, sd.has_tri_clusters or sd.has_tri_clusters_hbm)):
+        ran = work = 0
         while True:
             n_work = int(work_mask(s).sum())  # the one host sync of the iteration
             if log is not None:
@@ -253,7 +255,11 @@ def trace_film_streamed(
                 s, sd, cam, spp_limit, seed, k, max_depth, has_lights, p_light, p_bsdf
             )
             rays = rays + n_rays
-            iterations += 1
+            ran += 1
+            work += n_work
+        iterations += ran
+        if stages is not None:
+            stages.append((s["alive"].shape[0], ran, work))
         if thr:
             keep = torch.argsort((~work_mask(s)).to(torch.int8), stable=True)[:thr]
             bank.index_add_(0, s["lane"], s["film"])
@@ -323,6 +329,7 @@ class StreamStages:
       the state), its ray count added to ``rays`` on the device;
     - ``cond(i, bump)``: the stage's condition on the device, the lanes with work > its
       threshold (``ops/loop_cond.py``); bump adds the iteration just run to ``iters[i]``;
+      when it goes on, the lanes with work are added to ``work[i]``;
     - ``compact(i)``: the live lanes work-first into stage i+1's state, stage i's films
       into the bank;
     - ``finish()``: the last stage's films into the bank.
@@ -337,7 +344,7 @@ class StreamStages:
         self.seed = torch.zeros((), dtype=torch.int64, device=device)
         self.p_light, self.p_bsdf = _mis_probs(has_lights)
         self.thresholds = compaction_thresholds(b, sd.has_tri_clusters or sd.has_tri_clusters_hbm)
-        sizes = [b] + self.thresholds[:-1]
+        self.sizes = sizes = [b] + self.thresholds[:-1]  # each stage's lanes
         i32 = dict(dtype=torch.int32, device=device)
         proto = stream_state(torch.zeros(1, **i32), torch.zeros(1, **i32), torch.zeros(1, **i32),
                              torch.zeros(1, **i32))
@@ -346,6 +353,7 @@ class StreamStages:
         self.bank = torch.zeros((b, 3), dtype=REAL, device=device)
         self.rays = torch.zeros(1, dtype=torch.int64, device=device)
         self.iters = torch.zeros(len(sizes), dtype=torch.int64, device=device)
+        self.work = torch.zeros(len(sizes), dtype=torch.int64, device=device)  # lanes with work, summed
 
     def set_inputs(self, pixel_ids, rows, cols, sample0, seed, cam=None):
         s = self.states[0]
@@ -360,6 +368,7 @@ class StreamStages:
         self.bank.zero_()
         self.rays.zero_()
         self.iters.zero_()
+        self.work.zero_()
 
     def step(self, i):
         s = self.states[i]
@@ -372,7 +381,7 @@ class StreamStages:
     def cond(self, i, bump=False):
         s = self.states[i]
         return loop_cond.stage_cond(s["alive"], s["sample"], s["sample0"], self.k, self.spp_limit,
-                                    self.thresholds[i], self.iters[i : i + 1], bump)
+                                    self.thresholds[i], self.iters[i : i + 1], bump, work=self.work[i : i + 1])
 
     def compact(self, i):
         s, t = self.states[i], self.states[i + 1]

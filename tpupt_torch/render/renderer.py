@@ -23,6 +23,7 @@ import time as _time
 import numpy as np
 import torch
 
+from .. import trace
 from ..core.dtypes import NP_REAL
 from ..scene.compile import CompiledScene
 from .camera import Camera
@@ -44,6 +45,11 @@ class RenderStats:
     # host seconds spent capturing and instantiating launch graphs in this call (CUDA; part of
     # wall_s; 0 when every launch replayed graphs kept from an earlier call)
     capture_s: float = 0.0
+    work_lanes: int = 0  # lanes with work, summed over every wavefront iteration
+    lane_slots: int = 0  # each stage's lanes times its iterations, summed: work_lanes' most
+    # the card's seconds in the launches' chains, from their stamps of the card's clock (CUDA
+    # graphs; 0 on the eager loop)
+    device_s: float = 0.0
 
     @property
     def paths_per_s(self) -> float:
@@ -115,33 +121,41 @@ def lane_first_samples(pb, n_valid, r, k, sample0, spp_limit) -> np.ndarray:
 
 
 def _chunk_film(sd, cam, pixel_ids, n_valid, sample0, spp_limit, seed, *, k, r, max_depth,
-                has_lights, width, graphs=None):
+                has_lights, width, graphs=None, counts=None):
     """Film sums of up to r*k samples per pixel in `pixel_ids` -> ([pb,3], rays, iterations).
 
     r lanes per pixel, each streaming its own k-sample slice (replica j takes
     samples [sample0 + j*k, ...)). Lanes past n_valid (padding of the final pixel
     block) start at spp_limit, so they never start a path. On CUDA the launch runs as
     graphs: those of `graphs` (a LaunchGraphs), else graphs made for this launch alone;
-    the film is then a buffer of the graphs, valid until their next launch.
+    the film is then a buffer of the graphs, valid until their next launch. counts (a
+    dict), if given, gets the launch's "work_lanes", "lane_slots" and "device_s" added.
     """
     pb = pixel_ids.shape[0]
     dev = pixel_ids.device
-    pix = pixel_ids.repeat(r)
-    rows = pix // width
-    cols = pix % width
-    lane_sample0 = lane_first_samples(pb, n_valid, r, k, sample0, spp_limit)
-    n_work0 = int((lane_sample0 < spp_limit).sum())  # lanes with a first sample to take
-    lane_sample0 = torch.from_numpy(lane_sample0).to(dev)
+    with trace.span("render.inputs"):
+        pix = pixel_ids.repeat(r)
+        rows = pix // width
+        cols = pix % width
+        lane_sample0 = lane_first_samples(pb, n_valid, r, k, sample0, spp_limit)
+        n_work0 = int((lane_sample0 < spp_limit).sum())  # lanes with a first sample to take
+        lane_sample0 = torch.from_numpy(lane_sample0).to(dev)
     if dev.type == "cuda" and not _plain:
         args = (sd, cam, pix, rows, cols, lane_sample0, n_work0)
-        kw = dict(spp_limit=spp_limit, seed=seed, k=k, r=r, max_depth=max_depth, has_lights=has_lights)
+        kw = dict(spp_limit=spp_limit, seed=seed, k=k, r=r, max_depth=max_depth, has_lights=has_lights,
+                  counts=counts)
         if graphs is not None:
             return graphs.run(*args, **kw)
         with LaunchGraphs() as own:
             return own.run(*args, **kw)
-    film, rays, iters = trace_film_streamed(
-        sd, cam, pix, rows, cols, lane_sample0, spp_limit, seed, k, max_depth, has_lights
-    )
+    stages = []
+    with trace.span("render.eager"):
+        film, rays, iters = trace_film_streamed(
+            sd, cam, pix, rows, cols, lane_sample0, spp_limit, seed, k, max_depth, has_lights, stages=stages
+        )
+    if counts is not None:
+        counts["work_lanes"] = counts.get("work_lanes", 0) + sum(work for _, _, work in stages)
+        counts["lane_slots"] = counts.get("lane_slots", 0) + sum(lanes * ran for lanes, ran, _ in stages)
     return film.reshape(r, pb, 3).sum(dim=0), rays, iters
 
 
@@ -180,7 +194,9 @@ def render_image(
 
     profile_dir: trace the render with torch.profiler (CPU, and CUDA on a card) and
     write a Chrome trace, ``render_rank{i}.json`` (i = the mesh index, 0 without a
-    mesh), into the directory.
+    mesh), into the directory, with the program's spans and the card's intervals
+    (tpupt_torch/trace.py) merged in on the profiler's clock: those of the recording in
+    progress (from its start), else of one made for this call.
 
     debug_checks: validate every launch's film for NaN/Inf and raise with the
     launch coordinates.
@@ -190,9 +206,47 @@ def render_image(
     slice of every launch with the same streamed wavefront; the film and the ray
     count are all-reduced once a launch, so every rank returns the same image. Only
     index 0 writes the checkpoint; every rank resumes from it.
+
+    Spans (with a recording on): ``render`` (the call; its attrs the RenderStats), and in
+    it ``render.order``, ``render.inputs``, ``render.capture``, ``render.wait`` (CUDA
+    graphs: from the chain's launch to the launch's host read; the card's ``card.chain``
+    and ``card.stage{i}`` under it) or ``render.eager`` (the eager loop),
+    ``render.all_reduce``, ``render.readback``, ``render.accumulate``, ``render.tonemap``.
     """
     if mesh is not None and not isinstance(mesh, Mesh):
         raise TypeError(f"render_image: mesh must be a parallel.sharding.Mesh, got {type(mesh).__name__}")
+    args = (compiled, camera, seed, rays_per_launch, samples_per_launch, progress, checkpoint_path, on_launch,
+            debug_checks, mesh)
+    if profile_dir is None:
+        return _render_image(*args)
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if compiled.data.device.type == "cuda" else [])
+    rec = trace.active()
+    with contextlib.ExitStack() as stack:
+        if rec is None:
+            rec = stack.enter_context(trace.recording())
+        prof = stack.enter_context(profile(activities=acts))
+        out = _render_image(*args)
+    os.makedirs(profile_dir, exist_ok=True)
+    path = os.path.join(profile_dir, f"render_rank{0 if mesh is None else mesh.index}.json")
+    prof.export_chrome_trace(path)
+    trace.merge_chrome_trace(path, rec)
+    return out
+
+
+def _render_image(compiled, camera, seed, rays_per_launch, samples_per_launch, progress, checkpoint_path,
+                  on_launch, debug_checks, mesh):
+    with trace.span("render") as call:
+        img, mean, stats = _render_launches(compiled, camera, seed, rays_per_launch, samples_per_launch, progress,
+                                            checkpoint_path, on_launch, debug_checks, mesh)
+        if call is not None:
+            call.attrs.update(dataclasses.asdict(stats))
+    return img, mean, stats
+
+
+def _render_launches(compiled, camera, seed, rays_per_launch, samples_per_launch, progress, checkpoint_path,
+                     on_launch, debug_checks, mesh):
     sd = compiled.data
     dev = sd.device
     cam = camera.init(dev)
@@ -238,45 +292,44 @@ def render_image(
         if progress:
             print(f"  resuming at launch {start_it}/{total_launches}", flush=True)
 
-    if profile_dir is None:
-        prof = contextlib.nullcontext()
-    else:
-        from torch.profiler import ProfilerActivity, profile
-
-        acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if dev.type == "cuda" else [])
-        prof = profile(activities=acts)
     # this rank's first sample of a launch, after the launch's first sample
     dev_sample0 = 0 if mesh is None else mesh.index * r * k
-    order = _morton_pixel_order(w, h)
+    with trace.span("render.order"):
+        order = _morton_pixel_order(w, h)
     graphs = launch_graphs(compiled) if dev.type == "cuda" and not _plain else None
     capture0 = graphs.capture_s if graphs is not None else 0.0
+    counts = {}
     t0 = _time.perf_counter()
-    with prof:
-        for it in range(start_it, total_launches):
-            pblk, schunk = divmod(it, n_sample_chunks)
+    for it in range(start_it, total_launches):
+        pblk, schunk = divmod(it, n_sample_chunks)
+        with trace.span("render.inputs"):
             lo = pblk * pb
             ids = order[lo : min(lo + pb, npix)]
             n_valid = len(ids)
             if n_valid < pb:  # pad the final block (padded lanes never start a path)
                 ids = np.concatenate([ids, np.zeros(pb - n_valid, np.int32)])
-            for attempt in (0, 1):  # one launch-level retry on a transient failure
-                try:
-                    if _fault_hook is not None:
-                        _fault_hook(it)
-                    out, rays, iters = _chunk_film(
-                        sd, cam, torch.from_numpy(ids).to(dev), n_valid, schunk * spl + dev_sample0,
-                        spp, seed, k=k, r=r, max_depth=camera.max_depth,
-                        has_lights=compiled.has_lights, width=w, graphs=graphs,
-                    )
-                    break
-                except TransientLaunchError:
-                    if attempt == 1:
-                        raise
-                    if progress:
-                        print(f"  launch {it} failed transiently; retrying", flush=True)
-            if mesh is not None:  # after the retry scope: every rank joins once a launch
+            ids_dev = torch.from_numpy(ids).to(dev)
+        for attempt in (0, 1):  # one launch-level retry on a transient failure
+            try:
+                if _fault_hook is not None:
+                    _fault_hook(it)
+                out, rays, iters = _chunk_film(
+                    sd, cam, ids_dev, n_valid, schunk * spl + dev_sample0,
+                    spp, seed, k=k, r=r, max_depth=camera.max_depth,
+                    has_lights=compiled.has_lights, width=w, graphs=graphs, counts=counts,
+                )
+                break
+            except TransientLaunchError:
+                if attempt == 1:
+                    raise
+                if progress:
+                    print(f"  launch {it} failed transiently; retrying", flush=True)
+        if mesh is not None:  # after the retry scope: every rank joins once a launch
+            with trace.span("render.all_reduce"):
                 out, rays = all_reduce_film(mesh, out, rays)
+        with trace.span("render.readback"):
             out = out.cpu().numpy()
+        with trace.span("render.accumulate"):
             if debug_checks:
                 bad = ~np.isfinite(out[:n_valid])
                 if bad.any():
@@ -315,8 +368,9 @@ def render_image(
 
     stats.wall_s = _time.perf_counter() - t0
     stats.capture_s = graphs.capture_s - capture0 if graphs is not None else 0.0
-    if profile_dir is not None:
-        os.makedirs(profile_dir, exist_ok=True)
-        prof.export_chrome_trace(os.path.join(profile_dir, f"render_rank{0 if mesh is None else mesh.index}.json"))
-    mean = (film / spp).reshape(h, w, 3)
-    return tonemap_quantize(mean), mean.astype(NP_REAL), stats
+    stats.work_lanes = counts.get("work_lanes", 0)
+    stats.lane_slots = counts.get("lane_slots", 0)
+    stats.device_s = counts.get("device_s", 0.0)
+    with trace.span("render.tonemap"):
+        mean = (film / spp).reshape(h, w, 3)
+        return tonemap_quantize(mean), mean.astype(NP_REAL), stats

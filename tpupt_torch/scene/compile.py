@@ -26,6 +26,7 @@ import numpy as np
 
 from . import builder as B
 from . import data as D
+from .. import trace
 from ..core.dtypes import NP_REAL, ORACLE_X64
 from ..ops.bvh import build_tri_bvh_sah
 from ..ops.envmap import build_env_tables
@@ -46,7 +47,8 @@ def _image_rgb8(tex: "B.ImageTexture") -> np.ndarray:
         return img
     from ..io.image import load_image_rgb8
 
-    return load_image_rgb8(tex.path)
+    with trace.span("scene.image"):
+        return load_image_rgb8(tex.path)
 
 
 def _intern_texture(tex, tables) -> int:
@@ -192,9 +194,11 @@ def _env_tables(src) -> dict:
         else:
             from ..io.image import load_image_f32
 
-            img = load_image_f32(src).astype(NP_REAL)
+            with trace.span("scene.image"):
+                img = load_image_f32(src).astype(NP_REAL)
         h, w = img.shape[:2]
-        alias, prob, pdf = build_env_tables(img)
+        with trace.span("scene.envmap"):
+            alias, prob, pdf = build_env_tables(img)
         # env_sam holds alias indices as f32: exact only below 2^24
         assert alias.size < (1 << 24), "env map too large for f32-exact alias rows"
     return dict(
@@ -265,7 +269,8 @@ def _tri_route(tri: dict, n_real: int, bvh):
         use_bvh = bool(bvh) and n_real >= 2
     if not use_bvh and (bvh is False or n_real < BVH_THRESHOLD):
         return tri, None, tables, static
-    order, nodes, clusters = build_tri_bvh_sah(tri["tri_v0"], tri["tri_e1"], tri["tri_e2"])
+    with trace.span("scene.bvh"):
+        order, nodes, clusters = build_tri_bvh_sah(tri["tri_v0"], tri["tri_e1"], tri["tri_e2"])
     tri = {k: v[order] for k, v in tri.items()}
     tables.update(bvh_min=nodes["bmin"], bvh_max=nodes["bmax"], bvh_skip=nodes["skip"],
                   bvh_start=nodes["start"], bvh_count=nodes["count"])
@@ -487,6 +492,10 @@ def compile_numpy(scene: "B.Scene", bvh: bool | None = None) -> tuple[dict, dict
 
 
 def compile_scene(scene: "B.Scene", device=None, bvh: bool | None = None) -> CompiledScene:
-    """Compile a builder scene to SceneData on `device` (default cuda); bvh as in compile_numpy."""
-    fields, static, has_lights = compile_numpy(scene, bvh)
-    return CompiledScene(scene_data_from_numpy(fields, static, device), has_lights)
+    """Compile a builder scene to SceneData on `device` (default cuda); bvh as in compile_numpy.
+    The span ``scene.compile``, with ``scene.image`` (image decodes), ``scene.bvh`` (the SAH
+    build), ``scene.envmap`` (the HDR environment's tables) and ``scene.upload`` in it."""
+    with trace.span("scene.compile"):
+        fields, static, has_lights = compile_numpy(scene, bvh)
+        with trace.span("scene.upload"):
+            return CompiledScene(scene_data_from_numpy(fields, static, device), has_lights)
