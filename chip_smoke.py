@@ -60,6 +60,11 @@ table shapes (Cornell, scene 6, balls), K2 and K3 at theirs, K4 on both mesh sha
 beside K2 and K3 on the same rays (the flags flipped on one SceneData), with the counts
 of its own walk (wide-node fetches, triangle tests, steps, the deepest stack). The
 matmul sweep (the reference's MXU path) is held against the dense sweep and timed.
+The wavefront iteration's two kernels (KW1 regeneration, KW2 shading) are held against
+_stream_step, their plain version, on the Cornell box's stage runner at 360,000 lanes
+(100 samples a lane): one iteration of each route from the same state, at stage 0 and at
+the last stage (11,250 lanes), every field bit for bit; each kernel, the fused iteration
+and the plain one are timed there as CUDA graphs, and every render counts their launches.
 The repository ships no asset files, so the script writes stand-ins for scene 6's
 meshes (bunny.obj, spot.obj, cow.obj: lumpy spheres of the real meshes' triangle
 counts) and its environment map (grace_probe_latlong.hdr: a synthetic sky) to a
@@ -112,6 +117,14 @@ TRI_RAY_BYTES = 7 * 4 + 8 * 4  # o, d, t_in in; t, id, ns xyz, u, v, mat out
 BVH_NODE_BYTES = 8 * 4  # a binary node: its box, skip, start * 8 + count
 BVH_TRI_BYTES = 9 * 4  # v0, e1, e2 of a triangle row
 BVH_ATTR_BYTES = 16 * 4  # the attribute row of a ray's winner
+# the wavefront kernels' bytes (csrc/wavefront.cu): regeneration reads alive, sample, sample0
+# of every lane and pix, row, col of a regenerated one, which it writes o, d, time,
+# throughput, radiance, bounce, cur_sample, sample, alive; shading reads and writes alive,
+# bounce, throughput, radiance, film of every lane, reads o, d, time, pix, cur_sample and K1's
+# t, kind, idx of a live one and writes its o, d
+KW1_LANE_BYTES, KW1_NEW_BYTES = 1 + 4 + 4, 3 * 4 + 65
+KW2_LANE_BYTES, KW2_LIVE_BYTES = 2 * 41, 48 + 24
+WAVEFRONT = dict(width=600, spp=100, iterations=6)  # Cornell's runner; iterations into a stage
 MXU_VALID_SHARE = 0.999  # the matmul sweep against the dense sweep (tests/test_bvh.py:129-135)
 MXU_TOL = 1e-4
 
@@ -621,6 +634,143 @@ def check_grad_conds(dev):
     return bad, err, timing
 
 
+def wavefront_states(compiled, cam, dev):
+    """The Cornell box's stage runner at WAVEFRONT's size (a lane a pixel), driven as
+    StreamStages.run drives it on the card -> (runner, {label: (stage, state)}): copies of the
+    state of stage 0 and of the last stage, each WAVEFRONT["iterations"] into the stage."""
+    from tpupt_torch.render import integrator as I
+
+    w = WAVEFRONT["width"]
+    b, spp, c = w * w, WAVEFRONT["spp"], cam.init(dev)
+    st = I.StreamStages(compiled.data, c, b, spp, spp, cam.max_depth, compiled.has_lights, dev)
+    pix = torch.arange(b, dtype=torch.int32, device=dev)
+    st.set_inputs(pix, pix // w, pix % w, torch.zeros_like(pix), 5, c)
+    st.reset()
+    last, states = len(st.states) - 1, {}
+    for i in range(last + 1):
+        n = 0
+        while bool(st.cond(i, n > 0)[1]):
+            st.step(i)
+            n += 1
+            if n == WAVEFRONT["iterations"] and i in (0, last):
+                states[f"stage {i}, {st.sizes[i]} lanes"] = (i, {k: v.clone() for k, v in st.states[i].items()})
+                if i == last:
+                    break
+        if i < last:
+            st.compact(i)
+    if len(states) != 2:
+        raise SystemExit(f"chip_smoke: the Cornell runner did not reach {WAVEFRONT['iterations']} iterations of "
+                         f"its first and last stages ({list(states)})")
+    return st, states
+
+
+def _step_from(st, i, state, fused):
+    """One iteration of stage i of the runner from a copy of `state` -> (state after, rays)."""
+    s = {k: v.clone() for k, v in state.items()}
+    kept, rays0 = (st.states[i], st.fused), int(st.rays)
+    st.states[i], st.fused = s, fused
+    try:
+        st.step(i)
+    finally:
+        st.states[i], st.fused = kept
+    return s, int(st.rays) - rays0
+
+
+def check_wavefront(st, states):
+    """KW1 and KW2 against their plain version, _stream_step: from each state one iteration
+    by the kernels (the hit kernels between them) and one by the plain route. A field differs
+    on a lane where its bits do; regeneration's own fields (time, sample, cur_sample) and the
+    ray count are KW1's, the rest KW2's -> ({"KW1", "KW2"}: lanes off, {...}: max |error|)."""
+    from tpupt_torch.render.integrator import STEP_KEYS
+
+    own = ("time", "sample", "cur_sample")
+    bad, err = {"KW1": 0, "KW2": 0}, {"KW1": 0.0, "KW2": 0.0}
+    for label, (i, state) in states.items():
+        plain, rays_p = _step_from(st, i, state, False)
+        fused, rays_f = _step_from(st, i, state, True)
+        off = {}
+        for key in STEP_KEYS:
+            a, b = plain[key], fused[key]
+            bits = (a.view(torch.int32) != b.view(torch.int32)) if a.is_floating_point() else a != b
+            off[key] = int(bits.reshape(a.shape[0], -1).any(1).sum())
+            name = "KW1" if key in own else "KW2"
+            bad[name] += off[key]
+            if off[key]:
+                e = float(torch.nan_to_num((a.double() - b.double()).abs(), nan=math.inf).max())
+                err[name] = max(err[name], e)
+        bad["KW1"] += abs(rays_f - rays_p)
+        log(f"KW1/KW2 [{label}]: one fused iteration against _stream_step, lanes off by field {off}, rays "
+            f"{rays_f} / {rays_p}")
+    return bad, err
+
+
+def graph_ms(fn, reps=50, rounds=7):
+    """Device ms of `fn` captured as one CUDA graph (on a stream of its own, as a capture must
+    be): the median over `rounds` of the mean of `reps` replays back to back behind the spin
+    kernel (cuda_ms)."""
+    from tpupt_torch.render.graph import _capture
+
+    side, caller = torch.cuda.Stream(), torch.cuda.current_stream()
+    side.wait_stream(caller)
+    with torch.cuda.stream(side):
+        g, _ = _capture("a timed graph", fn, None, keep_graph=False)
+    caller.wait_stream(side)
+    return cuda_ms(g.replay, reps=reps, rounds=rounds)
+
+
+def time_wavefront(st, states):
+    """Each kernel, the fused iteration and the plain one (_stream_step) on each state, as CUDA
+    graphs behind a restore of the state they write (the restore's own graph subtracted); the
+    bytes bounds from the state's lanes -> {label: numbers}."""
+    from tpupt_torch.ops import wavefront_kernel as W
+    from tpupt_torch.ops.intersect import hit_kernels
+    from tpupt_torch.render.integrator import T_MAX, T_MIN
+
+    out = {}
+    for label, (i, state) in states.items():
+        n = state["alive"].shape[0]
+        s = {k: v.clone() for k, v in state.items()}
+
+        def restore(src):
+            for k, v in s.items():
+                v.copy_(src[k])
+
+        need = int(((~s["alive"]) & (s["sample"] < st.k) & ((s["sample0"] + s["sample"]) < st.spp_limit)).sum())
+        rays = torch.zeros(1, dtype=torch.int64, device=s["alive"].device)
+        t_restore = graph_ms(lambda: restore(state))
+        regen_ms = graph_ms(lambda: (restore(state), W.regenerate(s, st.cam, st.seed, st.k, st.spp_limit,
+                                                                   rays))) - t_restore
+        restore(state)
+        W.regenerate(s, st.cam, st.seed, st.k, st.spp_limit, rays)
+        after = {k: v.clone() for k, v in s.items()}
+        live = int(after["alive"].sum())
+        hits = hit_kernels(st.sd, s["o"], s["d"], s["time"], T_MIN, T_MAX, s["alive"])
+        shade_ms = graph_ms(lambda: (restore(after), W.shade(s, st.sd, hits, st.seed, st.max_depth, st.has_lights,
+                                                             st.p_light, st.p_bsdf))) - t_restore
+        kept = (st.states[i], st.fused)
+        st.states[i] = s
+        try:
+            st.fused = True
+            fused_ms = graph_ms(lambda: (restore(state), st.step(i))) - t_restore
+            st.fused = False
+            restore(state)
+            st.step(i)  # the plain route once outside a capture: its constants on the card
+            plain_ms = graph_ms(lambda: (restore(state), st.step(i)), reps=10, rounds=3) - t_restore
+        finally:
+            st.states[i], st.fused = kept
+        regen_bytes = n * KW1_LANE_BYTES + need * KW1_NEW_BYTES
+        shade_bytes = n * KW2_LANE_BYTES + live * KW2_LIVE_BYTES
+        out[label] = dict(lanes=n, regenerated=need, live=live, restore_ms=t_restore,
+                          KW1=dict(ms=regen_ms, bytes=regen_bytes, bound_ms=bound(0, regen_bytes)[0]),
+                          KW2=dict(ms=shade_ms, bytes=shade_bytes, bound_ms=bound(0, shade_bytes)[0]),
+                          iteration_ms=fused_ms, plain_iteration_ms=plain_ms)
+        log(f"KW1/KW2 [{label}]: {need} lanes regenerated, {live} live after; KW1 {regen_ms:.4f} ms (bytes bound "
+            f"{out[label]['KW1']['bound_ms']:.4f} ms, {regen_bytes} B), KW2 {shade_ms:.4f} ms (bytes bound "
+            f"{out[label]['KW2']['bound_ms']:.4f} ms, {shade_bytes} B); the iteration {fused_ms:.4f} ms fused, "
+            f"{plain_ms:.4f} ms by _stream_step (x{plain_ms / fused_ms:.1f})")
+    return out
+
+
 def masked_rays(rays):
     """A batch with t_in = 0 on every other lane (dead) and NaN in the origin or the
     direction of one lane in 61."""
@@ -737,7 +887,7 @@ def render(label, compiled, cam, counters, kernel_ms, compare=True):
     launches not counted), which must give the same film bit for bit, rays and iterations."""
     from tpupt_torch.render.renderer import plain_launches, render_image
 
-    counters = list(counters) + ["K5"]
+    counters = list(counters) + ["K5", "KW1", "KW2"]
     zero_counts()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -765,6 +915,9 @@ def render(label, compiled, cam, counters, kernel_ms, compare=True):
     if "K4" in counters and launches["K4"] != st.iterations:  # one closest_hit an iteration
         raise SystemExit(f"chip_smoke: the {label} render launched K4 {launches['K4']} times in "
                          f"{st.iterations} iterations")
+    if not launches["KW1"] == launches["KW2"] == st.fused_iterations == st.iterations:
+        raise SystemExit(f"chip_smoke: the {label} render's iterations must each launch KW1 and KW2 once: "
+                         f"{launches['KW1']}, {launches['KW2']}, {st.fused_iterations} fused of {st.iterations}")
     if mean.shape != (cam.image_height, cam.image_width, 3) or fin < 0.99 or not mu > 0.0:
         raise SystemExit(f"chip_smoke: the {label} film is wrong: shape {mean.shape}, finite share "
                          f"{fin}, mean {mu}")
@@ -887,20 +1040,22 @@ def random_mesh_scene(width, spp, n=60_000, seed=2):
 
 
 def zero_counts():
-    from tpupt_torch.ops import bvh_kernel, hit_kernel, loop_cond, tri_kernel
+    from tpupt_torch.ops import bvh_kernel, hit_kernel, loop_cond, tri_kernel, wavefront_kernel
 
     hit_kernel.launches = 0
     tri_kernel.launches.update(flat=0, two_level=0)
     bvh_kernel.launches = 0
     loop_cond.launches = loop_cond.gate_launches = loop_cond.countdown_launches = 0
+    wavefront_kernel.launches.update(regen=0, shade=0)
 
 
 def read_counts():
-    from tpupt_torch.ops import bvh_kernel, hit_kernel, loop_cond, tri_kernel
+    from tpupt_torch.ops import bvh_kernel, hit_kernel, loop_cond, tri_kernel, wavefront_kernel
 
     return {"K1": hit_kernel.launches, "K2": tri_kernel.launches["flat"],
             "K3": tri_kernel.launches["two_level"], "K4": bvh_kernel.launches, "K5": loop_cond.launches,
-            "K5 gate": loop_cond.gate_launches, "K5 countdown": loop_cond.countdown_launches}
+            "K5 gate": loop_cond.gate_launches, "K5 countdown": loop_cond.countdown_launches,
+            "KW1": wavefront_kernel.launches["regen"], "KW2": wavefront_kernel.launches["shade"]}
 
 
 def grad_box_scene(width, spp):
@@ -1589,8 +1744,8 @@ def main(argv=None) -> int:
 
     # ---- build every library of the port, one compiler per source, all at once ----
     t0 = time.perf_counter()
-    reports = build.build_all(["hit_kernel", "tri_kernel", "bvh_kernel", "loop_cond", "native_host"])
-    log(f"build (nvcc x4, g++ x1, in parallel): {time.perf_counter() - t0:.2f} s")
+    reports = build.build_all(["hit_kernel", "tri_kernel", "bvh_kernel", "loop_cond", "wavefront", "native_host"])
+    log(f"build (nvcc x5, g++ x1, in parallel): {time.perf_counter() - t0:.2f} s")
     for name, rep in reports.items():
         for line in rep.splitlines():
             if any(w in line for w in ("registers", "smem", "spill")):
@@ -1717,6 +1872,10 @@ def run(args, dev, hit_kernel, render_image, cornell_box_scene, balls_scene, eve
     grad_bad, grad_err, grad_timing = check_grad_conds(dev)
     for mode in ("gate", "countdown"):
         bad[f"K5 {mode}"], err[f"K5 {mode}"] = grad_bad[mode], grad_err[mode]
+    wf_runner, wf_states = wavefront_states(c_compiled, ccam, dev)
+    wf_bad, wf_err = check_wavefront(wf_runner, wf_states)
+    bad.update(wf_bad)
+    err.update(wf_err)
     if any(bad.values()):
         raise SystemExit(f"chip_smoke: kernels disagree with their plain versions: {bad}")
 
@@ -1751,6 +1910,13 @@ def run(args, dev, hit_kernel, render_image, cornell_box_scene, balls_scene, eve
     mxu = check_mxu(s6b.data, k4_rays["scene6"]["camera"], same_rays["scene6"]["camera"]["ms"])
     timing["K5"] = k5_timing
     timing["K5 gate"], timing["K5 countdown"] = grad_timing["gate"], grad_timing["countdown"]
+    # KW1, KW2 at stage 0 (ms, the plain route's whole iteration, the bytes bound), and at the
+    # last stage beside it
+    wf_times = time_wavefront(wf_runner, wf_states)
+    wf0, wf_tail = (wf_times[label] for label in wf_states)
+    del wf_runner, wf_states
+    for k in ("KW1", "KW2"):
+        timing[k] = (wf0[k]["ms"], wf0["plain_iteration_ms"], wf0[k]["bound_ms"], "bytes")
     kernel_ms = {k: v[0] for k, v in timing.items()}
 
     # ---- the main path: the renders through render_image, each by both routes ----
@@ -1765,7 +1931,7 @@ def run(args, dev, hit_kernel, render_image, cornell_box_scene, balls_scene, eve
     # scenes 2, 5 and 7: their textures through the port's PNG and JPEG readers, from the
     # baseline stand-ins and then from their twins (progressive JPEG, 16-bit and Adam7 PNG),
     # which decode to the same bytes: the two renders must be bit-equal
-    textured, textured_k5 = {}, {}
+    textured, textured_k5, textured_kw = {}, {}, {}
     for sid in (2, 5, 7):
         name, build_fn = SCENES[sid]
         films = []
@@ -1779,6 +1945,7 @@ def run(args, dev, hit_kernel, render_image, cornell_box_scene, balls_scene, eve
                                   compare=what != "twins")
             textured[f"scene{sid}" + (" twins" if what == "twins" else "")] = tl["K1"]
             textured_k5[f"scene{sid}" + (" twins" if what == "twins" else "")] = tl["K5"]
+            textured_kw[f"scene{sid}" + (" twins" if what == "twins" else "")] = tl
             films.append((mean, st.rays))
         (m_a, rays_a), (m_b, rays_b) = films
         equal = np.array_equal(m_a, m_b, equal_nan=True) and rays_a == rays_b
@@ -1791,7 +1958,10 @@ def run(args, dev, hit_kernel, render_image, cornell_box_scene, balls_scene, eve
                         dict(kernel_ms, K1=k1_times["scene6"]["camera"]["ms"]))
     _, _, bbl = render("bigmesh stand-in, bvh=True", bigb, bcam, ["K4"],
                        dict(kernel_ms, K4=k4_times["bigmesh"]["camera"]["ms"]))
-    launches = {"K1": cl["K1"], "K2": s6l["K2"], "K3": bl["K3"], "K4": s6bl["K4"], "K5": cl["K5"]}
+    launches = {"K1": cl["K1"], "K2": s6l["K2"], "K3": bl["K3"], "K4": s6bl["K4"], "K5": cl["K5"], "KW1": cl["KW1"],
+                "KW2": cl["KW2"]}
+    render_counts = {"cornell": cl, "scene6": s6l, "bigmesh": bl, "balls": ball, "env": el, **textured_kw,
+                     "scene6 bvh": s6bl, "bigmesh bvh": bbl}
     k1_launches = {"cornell": cl["K1"], "scene6": s6l["K1"], "balls": ball["K1"], "env": el["K1"]}
     for shape, n in k1_launches.items():  # which shape K1's time above its bound costs the most
         over = {batch: n * (v["ms"] - v["bound_ms"]) for batch, v in k1_times[shape].items()}
@@ -1879,6 +2049,9 @@ def run(args, dev, hit_kernel, render_image, cornell_box_scene, balls_scene, eve
         "K5": ("K5 stage_cond", "tpupt_torch/csrc/loop_cond.cu", "tpupt/render/integrator.py:306"),
         "K5 gate": ("K5 grad_gate", "tpupt_torch/csrc/loop_cond.cu", "tpupt/render/diff.py:244"),
         "K5 countdown": ("K5 grad_countdown", "tpupt_torch/csrc/loop_cond.cu", "tpupt/render/diff.py:246"),
+        # no Pallas kernel: XLA fuses the reference's jitted iteration by itself
+        "KW1": ("KW1 regen_kernel", "tpupt_torch/csrc/wavefront.cu", "tpupt/render/integrator.py:306-322"),
+        "KW2": ("KW2 shade_kernel", "tpupt_torch/csrc/wavefront.cu", "tpupt/render/integrator.py:306-322"),
     }
     # the gradient modes' launches: the `grads` pass by the graphs (a replayed call)
     for mode in ("K5 gate", "K5 countdown"):
@@ -1907,6 +2080,8 @@ def run(args, dev, hit_kernel, render_image, cornell_box_scene, balls_scene, eve
         elif k == "K5":  # every render: a stage's first test and one an iteration, on the card
             paths = {"cornell": cl["K5"], "scene6": s6l["K5"], "bigmesh": bl["K5"], "balls": ball["K5"],
                      "env": el["K5"], **textured_k5, "scene6 bvh": s6bl["K5"], "bigmesh bvh": bbl["K5"]}
+        elif k in ("KW1", "KW2"):  # every render, once an iteration
+            paths = {label: n[k] for label, n in render_counts.items()}
         elif k in ("K5 gate", "K5 countdown"):  # every gradient pass by the graphs: once a trip and a chunk
             paths = {label: (g["graphs"] if "graphs" in g else g)["counts"][k] for label, g in grads.items()}
         else:
@@ -1926,6 +2101,11 @@ def run(args, dev, hit_kernel, render_image, cornell_box_scene, balls_scene, eve
             if counts.get(k):
                 paths[f"render_grads {label}"] = counts[k]
         kernels[-1]["launches_by_path"] = paths
+        if k in ("KW1", "KW2"):  # the last stage's state beside stage 0's; plain_ms is _stream_step's whole iteration
+            kernels[-1].update(lanes=wf0["lanes"], iteration_ms=wf0["iteration_ms"], bytes=wf0[k]["bytes"],
+                               lanes_tail=wf_tail["lanes"], ms_tail=wf_tail[k]["ms"],
+                               plain_ms_tail=wf_tail["plain_iteration_ms"], bound_ms_tail=wf_tail[k]["bound_ms"],
+                               bytes_tail=wf_tail[k]["bytes"], iteration_ms_tail=wf_tail["iteration_ms"])
         if k == "K4":  # both shapes, and K2 / K3 on the same batches; the matmul sweep beside K2
             kernels[-1].update(shapes={shape: dict(v, launches=paths[f"{shape} bvh"])
                                        for shape, v in k4_times.items()},

@@ -993,6 +993,49 @@ def test_graph_capture_failure_raises(cuda, monkeypatch):
     assert st.iterations > 0 and np.isfinite(mean).mean() > 0.99
 
 
+def test_a_collection_during_capture_frees_no_graph(cuda, monkeypatch):
+    """A captured graph left in a reference cycle becomes garbage while a launch's iteration
+    is captured, with the cyclic collector set to run at every allocation: the capture
+    completes (the collector is off while a capture lasts; freeing a graph inside one would
+    invalidate it) and the render equals the eager loop's."""
+    import gc
+
+    from tpupt_torch.render import integrator
+    from tpupt_torch.render import renderer as R
+
+    junk = torch.cuda.CUDAGraph()
+    x = torch.zeros(8, device=cuda)
+    with torch.cuda.graph(junk):
+        x.add_(1.0)
+    held = [junk]
+    del junk
+    step = integrator.StreamStages.step
+
+    def planted(self, i):
+        if torch.cuda.is_current_stream_capturing() and held:
+            cycle = [held.pop()]
+            cycle.append(cycle)  # garbage that only the cyclic collector frees
+            del cycle
+            _ = [[] for _ in range(100)]  # allocations that would start a collection
+        step(self, i)
+
+    monkeypatch.setattr(integrator.StreamStages, "step", planted)
+    compiled, cam = _graph_scene("K1", cuda)
+    threshold = gc.get_threshold()
+    gc.set_threshold(1, 1, 1)
+    try:
+        _, m_g, st_g = render_image(compiled, cam, progress=False)
+    finally:
+        gc.set_threshold(*threshold)
+    monkeypatch.setattr(integrator.StreamStages, "step", step)
+    gc.collect()
+    with R.plain_launches():
+        _, m_e, st_e = render_image(compiled, cam, progress=False)
+    assert not held
+    np.testing.assert_array_equal(m_g, m_e)
+    assert st_g.iterations == st_e.iterations > 0
+
+
 def test_tables_are_never_built_under_capture(cuda):
     """K1's tables and K4's wide tree raise when first made under capture."""
     compiled, _ = _graph_scene("K4", cuda)

@@ -173,46 +173,61 @@ def closest_hit(sd: "D.SceneData", o, d, time, tmin, tmax, alive=None) -> Hit:
     they cull every cluster or box and stop widening their warp's visits (their hit
     record is garbage either way; callers mask by alive).
     """
-    sph, quad = hit_kernel.tables(sd)
-    t_sq, kind_sq, idx_sq = hit_kernel.closest_sphere_quad(
-        o.contiguous(), d.contiguous(), time.contiguous(), sph, quad, tmin=tmin
-    )
+    t_sq, kind_sq, idx_sq, tri = hit_kernels(sd, o, d, time, tmin, tmax, alive)
     is_sph = kind_sq == KIND_SPHERE
     t_s = torch.where(is_sph, t_sq, BIG)
     i_s = torch.where(is_sph, idx_sq, 0)
     t_q = torch.where(~is_sph, t_sq, BIG)
     i_q = torch.where(~is_sph, idx_sq, 0)
     tri_aux = None
+    if tri is None:  # no triangle: the sphere/quad winner alone
+        t_best = torch.minimum(t_s, t_q)
+        kind = torch.where(t_s == t_best, KIND_SPHERE, KIND_QUAD).to(torch.int32)
+        idx = torch.where(kind == KIND_SPHERE, i_s, i_q)
+    else:
+        t_t, i_t, tri_aux = tri
+        t_best = torch.minimum(torch.minimum(t_s, t_q), t_t)
+        kind = torch.where(
+            t_s == t_best,
+            KIND_SPHERE,
+            torch.where(t_q == t_best, KIND_QUAD, KIND_TRI),
+        ).to(torch.int32)
+        idx = torch.where(kind == KIND_SPHERE, i_s, torch.where(kind == KIND_QUAD, i_q, i_t))
+    valid = t_best < BIG
+    return _make_hit(sd, o, d, time, t_best, kind, idx, valid, tri_aux)
+
+
+def hit_kernels(sd, o, d, time, tmin, tmax, alive=None):
+    """closest_hit's kernel calls -> (t_sq, kind_sq, idx_sq, tri): K1's outputs (or its plain
+    version's), and the triangle route's (t, idx, the kernels' attributes or None on the
+    sweeps), None where the scene has no triangle (``has_real_tris``: its table's pad row
+    hits nothing). The selection and the hit's attributes are the caller's: closest_hit's,
+    or the shading kernel's (``ops/wavefront_kernel.py``)."""
+    sph, quad = hit_kernel.tables(sd)
+    t_sq, kind_sq, idx_sq = hit_kernel.closest_sphere_quad(
+        o.contiguous(), d.contiguous(), time.contiguous(), sph, quad, tmin=tmin
+    )
+    if not sd.has_real_tris:
+        return t_sq, kind_sq, idx_sq, None
     if sd.has_tri_clusters or sd.has_tri_clusters_hbm:
-        # seeded with the sphere/quad winner, so closer geometry culls clusters
-        t_in = torch.minimum(torch.minimum(t_s, t_q), torch.full_like(t_s, tmax))
+        # seeded with the sphere/quad winner, so closer geometry culls clusters (K1's t is
+        # at most BIG, so this is min(t_sphere, t_quad, tmax))
+        t_in = torch.minimum(t_sq, torch.full_like(t_sq, tmax))
         if alive is not None:
             t_in = torch.where(alive, t_in, 0.0)
-        t_t, i_t, tri_aux = tri_kernel.closest_tri(
-            sd, o.contiguous(), d.contiguous(), t_in.contiguous(), tmin
-        )
+        tri = tri_kernel.closest_tri(sd, o.contiguous(), d.contiguous(), t_in.contiguous(), tmin)
     elif sd.has_tri_bvh:
         # the BVH walk (K4) from the root with tmax, unseeded as in the reference (a
         # sphere's t as seed could drop a triangle an ulp below it)
-        t_in = torch.full_like(t_s, tmax)
+        t_in = torch.full_like(t_sq, tmax)
         if alive is not None:
             t_in = torch.where(alive, t_in, 0.0)
-        t_t, i_t, tri_aux = bvh_kernel.closest_tri_bvh(o.contiguous(), d.contiguous(), t_in, tmin,
-                                                       *bvh_kernel.scene_nodes(sd))
+        tri = bvh_kernel.closest_tri_bvh(o.contiguous(), d.contiguous(), t_in, tmin, *bvh_kernel.scene_nodes(sd))
     elif sd.has_tri_mxu:
-        t_t, i_t = _mxu_sweep(sd, o, d, tmin, tmax)
+        tri = (*_mxu_sweep(sd, o, d, tmin, tmax), None)
     else:
-        t_t, i_t = _tri_sweep(sd, o, d, tmin, tmax)
-
-    t_best = torch.minimum(torch.minimum(t_s, t_q), t_t)
-    kind = torch.where(
-        t_s == t_best,
-        KIND_SPHERE,
-        torch.where(t_q == t_best, KIND_QUAD, KIND_TRI),
-    ).to(torch.int32)
-    idx = torch.where(kind == KIND_SPHERE, i_s, torch.where(kind == KIND_QUAD, i_q, i_t))
-    valid = t_best < BIG
-    return _make_hit(sd, o, d, time, t_best, kind, idx, valid, tri_aux)
+        tri = (*_tri_sweep(sd, o, d, tmin, tmax), None)
+    return t_sq, kind_sq, idx_sq, tri
 
 
 def _make_hit(sd, o, d, time, t, kind, idx, valid, tri_aux=None) -> Hit:

@@ -56,6 +56,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import gc
 import time as _time
 import weakref
 
@@ -63,20 +64,22 @@ import torch
 
 from .. import trace
 from ..core.dtypes import REAL
-from ..ops import bvh_kernel, hit_kernel, loop_cond, tri_kernel
+from ..ops import bvh_kernel, hit_kernel, loop_cond, tri_kernel, wavefront_kernel
 from .diff import DIFF_FIELDS, RADIANCE_SAVED, FilmScanStages, RadianceScanStages, chunk_trips
 from .integrator import StreamStages
 
 
 def _captured() -> dict:
     return {"K1": hit_kernel.captured, "K2": tri_kernel.captured["flat"],
-            "K3": tri_kernel.captured["two_level"], "K4": bvh_kernel.captured}
+            "K3": tri_kernel.captured["two_level"], "K4": bvh_kernel.captured,
+            "regen": wavefront_kernel.captured["regen"], "shade": wavefront_kernel.captured["shade"]}
 
 
 def _zero_captured():
     hit_kernel.captured = 0
     tri_kernel.captured.update(flat=0, two_level=0)
     bvh_kernel.captured = 0
+    wavefront_kernel.captured.update(regen=0, shade=0)
 
 
 def _add_launches(n: dict):
@@ -84,6 +87,8 @@ def _add_launches(n: dict):
     tri_kernel.launches["flat"] += n["K2"]
     tri_kernel.launches["two_level"] += n["K3"]
     bvh_kernel.launches += n["K4"]
+    wavefront_kernel.launches["regen"] += n["regen"]
+    wavefront_kernel.launches["shade"] += n["shade"]
 
 
 def _node_types(graph: torch.cuda.CUDAGraph) -> dict:
@@ -97,32 +102,44 @@ def _node_types(graph: torch.cuda.CUDAGraph) -> dict:
 
 def _capture(what, fn, pool, keep_graph=True):
     """fn captured into a CUDA graph in `pool` (None: a pool of its own) -> (graph, kernel
-    calls captured). A failure raises RuntimeError naming `what`."""
+    calls captured). A failure raises RuntimeError naming `what`.
+
+    Python's cyclic garbage collector is off during the capture: graphs kept in reference
+    cycles (a LaunchGraphs and its launches) are freed only by it, and freeing a graph makes
+    CUDA calls that a capture forbids, which would invalidate the capture."""
     g = torch.cuda.CUDAGraph(keep_graph=keep_graph)
     _zero_captured()
-    g.capture_begin(pool=pool)
+    collecting = gc.isenabled()
+    gc.disable()
     try:
-        fn()
-    except BaseException as e:
+        g.capture_begin(pool=pool)
+        try:
+            fn()
+        except BaseException as e:
+            try:
+                g.capture_end()
+            except RuntimeError:
+                pass  # the capture was invalidated; the first error is the one to report
+            raise RuntimeError(f"{what} failed: {e}") from e
         try:
             g.capture_end()
-        except RuntimeError:
-            pass  # the capture was invalidated; the first error is the one to report
-        raise RuntimeError(f"{what} failed: {e}") from e
-    try:
-        g.capture_end()
-    except RuntimeError as e:
-        raise RuntimeError(f"{what} failed: {e}") from e
+        except RuntimeError as e:
+            raise RuntimeError(f"{what} failed: {e}") from e
+    finally:
+        if collecting:
+            gc.enable()
     return g, _captured()
 
 
-def _body(what, graph):
-    """Raise unless a captured loop body holds only the node types a WHILE node's body takes."""
+def _body(what, graph) -> dict:
+    """A captured loop body's census ({node type name: count}); raises unless it holds only
+    the node types a WHILE node's body takes."""
     kinds = _node_types(graph)
     bad = sorted(set(kinds) - set(loop_cond.BODY_NODE_TYPES))
     if bad:
         raise RuntimeError(f"{what} captured {bad} nodes ({kinds}); a WHILE node's body takes kernel, "
                            "memcpy and memset nodes")
+    return kinds
 
 
 def _stamp(sd, inputs=DIFF_FIELDS) -> tuple:
@@ -168,7 +185,7 @@ class LaunchGraphs:
         spp_limit), known to the host. The film is a buffer of the graphs: valid until the
         next launch of the same shape. Graphs whose scene moved since their capture
         (``_stamp``) are dropped and made anew. counts (a dict), if given, gets the launch's
-        "work_lanes", "lane_slots" and "device_s" added (``_Launch.run``).
+        "work_lanes", "lane_slots", "device_s" and "fused_iterations" added (``_Launch.run``).
         """
         if n_work0 == 0:  # no lane starts a sample: nothing to trace
             return torch.zeros((pix.shape[0] // r, 3), dtype=REAL, device=pix.device), 0, 0
@@ -228,6 +245,7 @@ class _Launch:
         self.reset_graph = None
         self.bodies, self.compactions, self.finish = [], [], None
         self.per_iteration = []  # kernel calls captured in each stage's body
+        self.body_nodes = []  # each stage's body: its graph's nodes, all types
         self.parents: dict[int, ctypes.c_void_p] = {}  # chains by their first stage
         weakref.finalize(self, _destroy, self.parents)
 
@@ -242,7 +260,7 @@ class _Launch:
         self.reset_graph, _ = self._capture("the launch's reset", st.reset, keep_graph=False)
         for i in range(n):
             body, calls = self._capture(f"the iteration of stage {i}", lambda i=i: st.step(i))
-            _body(f"render graph: the iteration of stage {i}", body)
+            self.body_nodes.append(sum(_body(f"render graph: the iteration of stage {i}", body).values()))
             self.bodies.append(body)
             self.per_iteration.append(calls)
             if i + 1 < n:
@@ -320,6 +338,7 @@ class _Launch:
                 self._capture_all()
             except BaseException:  # nothing half-captured is kept (LaunchGraphs drops this launch)
                 self.reset_graph, self.bodies, self.compactions, self.per_iteration = None, [], [], []
+                self.body_nodes = []
                 raise
             self.owner.capture_s += _time.perf_counter() - t0
         torch.cuda.current_stream().wait_stream(self.stream)
@@ -332,8 +351,10 @@ class _Launch:
             st.set_inputs(pix, rows, cols, lane_sample0, seed, cam)
         eager = [0] * n
         if self.reset_graph is None:
-            with trace.span("render.capture"):
+            with trace.span("render.capture") as sp:
                 start = self._first(n_work0)
+                if sp is not None:
+                    sp.attrs["body_nodes"] = list(self.body_nodes)
             eager[start] = 1
         else:
             start = 0
@@ -355,6 +376,7 @@ class _Launch:
             counts["work_lanes"] = counts.get("work_lanes", 0) + sum(work)
             counts["lane_slots"] = counts.get("lane_slots", 0) + sum(slots)
             counts["device_s"] = counts.get("device_s", 0.0) + 1e-9 * (stamps[n + 1] - stamps[0])
+            counts["fused_iterations"] = counts.get("fused_iterations", 0) + (sum(iters) if st.fused else 0)
         if wait is not None:
             trace.card(wait, "card.chain", stamps[0], stamps[n + 1], first_stage=start)
             for i in range(start, n):

@@ -42,8 +42,8 @@ from ..core.dtypes import REAL
 from ..ops import lights as light_ops
 from ..ops.bsdf import bsdf_eval, bsdf_pdf, bsdf_sample, make_shade
 from ..ops.envmap import sample_environment
-from ..ops.intersect import closest_hit
-from ..ops import loop_cond
+from ..ops.intersect import closest_hit, hit_kernels
+from ..ops import loop_cond, wavefront_kernel
 from ..scene import data as D
 from .camera import generate_rays
 
@@ -325,8 +325,10 @@ class StreamStages:
       camera of the launch's shape;
     - ``reset()``: stage 0 to the state before the first iteration; the film bank and the
       counters to zero;
-    - ``step(i)``: one iteration of stage i (``_stream_step``, then ``copy_`` back into
-      the state), its ray count added to ``rays`` on the device;
+    - ``step(i)``: one iteration of stage i, its ray count added to ``rays`` on the device.
+      On the card (``fused``) the regeneration kernel, the hit kernels and the shading
+      kernel (``ops/wavefront_kernel.py``) update the state in place; on the CPU
+      ``_stream_step`` runs, then ``copy_`` back into the state;
     - ``cond(i, bump)``: the stage's condition on the device, the lanes with work > its
       threshold (``ops/loop_cond.py``); bump adds the iteration just run to ``iters[i]``;
       when it goes on, the lanes with work are added to ``work[i]``;
@@ -354,6 +356,7 @@ class StreamStages:
         self.rays = torch.zeros(1, dtype=torch.int64, device=device)
         self.iters = torch.zeros(len(sizes), dtype=torch.int64, device=device)
         self.work = torch.zeros(len(sizes), dtype=torch.int64, device=device)  # lanes with work, summed
+        self.fused = torch.device(device).type == "cuda"
 
     def set_inputs(self, pixel_ids, rows, cols, sample0, seed, cam=None):
         s = self.states[0]
@@ -372,6 +375,12 @@ class StreamStages:
 
     def step(self, i):
         s = self.states[i]
+        if self.fused:
+            wavefront_kernel.regenerate(s, self.cam, self.seed, self.k, self.spp_limit, self.rays)
+            hits = hit_kernels(self.sd, s["o"], s["d"], s["time"], T_MIN, T_MAX, s["alive"])
+            wavefront_kernel.shade(s, self.sd, hits, self.seed, self.max_depth, self.has_lights, self.p_light,
+                                   self.p_bsdf)
+            return
         out, n_rays = _stream_step(s, self.sd, self.cam, self.spp_limit, self.seed, self.k, self.max_depth,
                                    self.has_lights, self.p_light, self.p_bsdf)
         for key in STEP_KEYS:

@@ -50,6 +50,9 @@ class RenderStats:
     # the card's seconds in the launches' chains, from their stamps of the card's clock (CUDA
     # graphs; 0 on the eager loop)
     device_s: float = 0.0
+    # iterations whose step ran on the regeneration and shading kernels (CUDA graphs; 0 on the
+    # eager loop)
+    fused_iterations: int = 0
 
     @property
     def paths_per_s(self) -> float:
@@ -129,7 +132,8 @@ def _chunk_film(sd, cam, pixel_ids, n_valid, sample0, spp_limit, seed, *, k, r, 
     block) start at spp_limit, so they never start a path. On CUDA the launch runs as
     graphs: those of `graphs` (a LaunchGraphs), else graphs made for this launch alone;
     the film is then a buffer of the graphs, valid until their next launch. counts (a
-    dict), if given, gets the launch's "work_lanes", "lane_slots" and "device_s" added.
+    dict), if given, gets the launch's "work_lanes", "lane_slots", "device_s" and
+    "fused_iterations" added.
     """
     pb = pixel_ids.shape[0]
     dev = pixel_ids.device
@@ -371,6 +375,7 @@ def _render_launches(compiled, camera, seed, rays_per_launch, samples_per_launch
     stats.work_lanes = counts.get("work_lanes", 0)
     stats.lane_slots = counts.get("lane_slots", 0)
     stats.device_s = counts.get("device_s", 0.0)
+    stats.fused_iterations = counts.get("fused_iterations", 0)
     with trace.span("render.tonemap"):
         mean = (film / spp).reshape(h, w, 3)
         return tonemap_quantize(mean), mean.astype(NP_REAL), stats

@@ -483,6 +483,7 @@ def compile_numpy(scene: "B.Scene", bvh: bool | None = None) -> tuple[dict, dict
         env_map_w=int(tex_img[env_tex_id][1]) if env_img else 0,
         env_map_h=int(tex_img[env_tex_id][2]) if env_img else 0,
         n_lights_real=len(tables["lights"]),
+        has_real_tris=bool(tables["tri"]),
         has_tri_mxu=False,
         **route_static,
     )

@@ -42,7 +42,7 @@ def scene_data_from_numpy(fields: dict, static: dict, device=None) -> D.SceneDat
     if missing:
         raise KeyError(f"scene fields missing: {missing}")
     tensors = {n: _to_tensor(fields[n], dev) for n in D.tensor_fields()}
-    facts = {n: static[n] for n in D.STATIC_FIELDS if n in static}
+    facts = {n: static[n] for n in D.STATIC_FIELDS + D.PORT_STATIC_FIELDS if n in static}
     if "mat_types" in facts:
         facts["mat_types"] = tuple(int(t) for t in facts["mat_types"])
     return D.SceneData(**tensors, **facts)

@@ -76,6 +76,8 @@ STATIC_FIELDS = (
     "has_tri_clusters_hbm",
     "tri_sc_size",
 )
+# the port's own static facts, which the reference's SceneData does not carry
+PORT_STATIC_FIELDS = ("has_real_tris",)
 
 
 @dataclasses.dataclass
@@ -191,6 +193,9 @@ class SceneData:
     has_tri_clusters: bool = False
     has_tri_clusters_hbm: bool = False
     tri_sc_size: int = 64  # clusters per supercluster of tri_scl
+    # whether the triangle table holds a scene triangle, not its pad row alone (zero edges,
+    # which no ray hits): False skips the triangle route in closest_hit
+    has_real_tris: bool = True
 
     def __post_init__(self):
         # host copy of the (kind, index) light rows: the light pdf loops over
@@ -223,7 +228,7 @@ class SceneData:
 
 
 def tensor_fields() -> list[str]:
-    return [f.name for f in dataclasses.fields(SceneData) if f.name not in STATIC_FIELDS]
+    return [f.name for f in dataclasses.fields(SceneData) if f.name not in STATIC_FIELDS + PORT_STATIC_FIELDS]
 
 
 @dataclasses.dataclass
