@@ -4,13 +4,15 @@ correct, and runs driven past the look for a card with the program broken undern
 (core/faults.py) coming out as not correct, each cell at its own limits. (The cells run
 on one card: there is no exchange between cards to leave out.)"""
 
+import os
+
 import numpy as np
 import pytest
 import torch
 
 from ptbench import run as R
 from ptbench.core import faults, renders, spec
-from ptbench.tests.tiny import EXTRA_CELLS, tiny_copy, tiny_run
+from ptbench.tests.tiny import EXTRA_CELLS, MAX_PATHS, MIN_SPP, frame_paths, tiny_copy, tiny_run
 
 CELLS = [w["name"] for w in spec.benchmark()["workloads"]] + EXTRA_CELLS
 
@@ -45,7 +47,8 @@ def test_the_control_is_not_correct(tiny, cell):
 @pytest.mark.parametrize("fault", faults.NAMES)
 @pytest.mark.parametrize("cell", CELLS)
 def test_a_broken_program_is_not_correct(tiny, cell, fault):
-    if fault == "half_batch" and cell == "cornell.preview":
+    wl = spec.workload(cell, tiny[1])
+    if fault == "half_batch" and wl["traffic"] == "preview" and wl["params"]["spp"] < 2:
         pytest.skip("a preview call has one sample a pixel: there is no half to leave out")
     undo = faults.plant(fault)
     try:
@@ -55,6 +58,16 @@ def test_a_broken_program_is_not_correct(tiny, cell, fault):
     if fault == "state_unchanged" and run.workload["traffic"] != "grad_steps":
         assert len(run.calls) >= 2
     assert not result["correct"], run.numbers
+
+
+def test_every_configuration_is_cut_to_a_test_size(tiny):
+    root, here = tiny
+    names = sorted(fn[: -len(".json")] for fn in os.listdir(os.path.join(here, "configs")))
+    assert names == sorted(c["name"] for c in spec.benchmark(root)["configs"])
+    assert {c["name"] for c in spec.benchmark()["configs"]} | {"everything"} <= set(names)
+    for name in names:
+        cam = spec.config(name, here)["camera"]
+        assert cam["samples_per_pixel"] >= MIN_SPP and frame_paths(cam) <= MAX_PATHS, (name, cam)
 
 
 def test_pixel_samples_and_seeds_follow_the_seed(tiny):
