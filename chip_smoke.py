@@ -56,7 +56,8 @@ tpupt_torch.entry.entry() on the card.
 Each kernel is held bit-equal to its plain version on random and camera rays and on
 the bounce rays that follow its camera rays' hits (K4 also on its camera rays with
 every other lane dead and NaN rays), and is timed on both batches: K1 at its three
-table shapes (Cornell, scene 6, balls), K2 and K3 at theirs, K4 on both mesh shapes
+table shapes (Cornell, scene 6, balls; and again counting its tile cull, whose counts are
+held equal to the plain version's), K2 and K3 at theirs, K4 on both mesh shapes
 beside K2 and K3 on the same rays (the flags flipped on one SceneData), with the counts
 of its own walk (wide-node fetches, triangle tests, steps, the deepest stack). The
 matmul sweep (the reference's MXU path) is held against the dense sweep and timed.
@@ -88,6 +89,7 @@ import math
 import os
 import shutil
 import socket
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -395,10 +397,23 @@ def time_k1(hit_kernel, shape, batch, sph, quad, rays):
     -> dict(ms, plain_ms, bound_ms, bound_by, ...)."""
     o, d, tm = rays
     b = o.shape[0]
-    ms = cuda_ms(lambda: hit_kernel.closest_sphere_quad(o, d, tm, sph, quad))
+    k1 = torch.zeros(len(hit_kernel.K1_COUNTS), dtype=torch.int64, device=o.device)
+    # the counts' cost: 7 pairs (without, with), each time a median of cuda_ms' rounds
+    pairs = [(cuda_ms(lambda: hit_kernel.closest_sphere_quad(o, d, tm, sph, quad)),
+              cuda_ms(lambda: hit_kernel.closest_sphere_quad(o, d, tm, sph, quad, counts=k1)))
+             for _ in range(7)]
+    ms, counting_ms = (float(np.median(x)) for x in zip(*pairs))
+    cost = [100 * (c / m - 1) for m, c in pairs]
+    q1, q2, q3 = statistics.quantiles(cost, n=4)
     plain_ms = cuda_ms(lambda: hit_kernel.closest_sphere_quad_plain(o, d, tm, sph, quad), reps=1, rounds=3)
     counts = {}
     t, _, _ = hit_kernel.closest_sphere_quad_plain(o, d, tm, sph, quad, counts=counts)
+    k1.zero_()
+    hit_kernel.closest_sphere_quad(o, d, tm, sph, quad, counts=k1)
+    want = [counts.get(key, 0) for key in hit_kernel.K1_COUNTS]  # none where the table is one tile
+    if k1.tolist() != want:
+        raise SystemExit(f"chip_smoke: K1's counts of its tile cull [{shape}, {batch}] {k1.tolist()} differ "
+                         f"from its plain version's {want}")
     real_s, real_q = k1_real_slots(sph, quad)
     flops = (counts["box_tests"] * K1_FLOPS_BOX + counts["sphere_tests"] * K1_FLOPS_SPHERE
              + counts["quad_tests"] * K1_FLOPS_QUAD)
@@ -406,14 +421,17 @@ def time_k1(hit_kernel, shape, batch, sph, quad, rays):
     bound_ms, bound_by = bound(flops, nbytes)
     all_ms, all_by = bound(b * (real_s * K1_FLOPS_SPHERE + real_q * K1_FLOPS_QUAD), nbytes)
     log(f"K1 [{shape}, {batch}] at B={b}, S={sph.shape[1]} ({real_s} real), Q={quad.shape[1]} "
-        f"({real_q} real), hit share {float((t < 3e38).float().mean()):.4f}: kernel {ms:.4f} ms, plain "
-        f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: {counts['box_tests']} box tests, "
+        f"({real_q} real), hit share {float((t < 3e38).float().mean()):.4f}: kernel {ms:.4f} ms, counting "
+        f"its tile cull {counting_ms:.4f} ms (over 7 pairs {q2:+.2f}%, quartiles {q1:+.2f}, {q3:+.2f}%), "
+        f"plain {plain_ms:.4f} ms, "
+        f"bound {bound_ms:.4f} ms ({bound_by}: {counts['box_tests']} box tests, "
         f"{counts['sphere_tests']} sphere tests = {counts['sphere_tests'] / max(b * real_s, 1):.4f} of "
         f"rays x real spheres ({counts['warp_sphere_tests'] / max(b * real_s, 1):.4f} when a warp of "
         f"32 rays sweeps a tile together), {counts['quad_tests']} quad tests, {flops:.3e} flop = "
         f"{1e3 * flops / PEAK_F32_FLOPS:.4f} ms, {nbytes:.3e} B = {1e3 * nbytes / PEAK_BYTES_PER_S:.4f} "
         f"ms); bound on every real slot {all_ms:.4f} ms ({all_by}); no single PyTorch call computes it")
-    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, lanes=b,
+    return dict(ms=ms, counting_ms=counting_ms, counting_cost_pct=cost, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, lanes=b,
                 S=sph.shape[1], Q=quad.shape[1], real_S=real_s, real_Q=real_q,
                 bound_ms_every_real_slot=all_ms, **counts)
 

@@ -144,6 +144,93 @@ def test_kernel_camera_and_bounce_rays(cuda, which):
     assert which in SPARSE or (t2[hit] < 3e38).float().mean() > 0.02
 
 
+def _balls_rays(which, sph, quad, dev):
+    """Rays on the balls table: the camera's rays of a 600x337 frame at sample 0 in
+    render_image's lane order (its lens and times), the rays that leave their hits in
+    random directions of the normal's hemisphere, or 100,003 random rays of which one in
+    ten of the first half may not cull (time outside [0,1]); a last warp of 11 rays in the
+    bounce rays, of 3 in the random ones."""
+    from tpupt_torch.render import renderer as R
+    from tpupt_torch.render.camera import generate_rays
+
+    cam = balls_scene(600, 100)[1]
+    if which == "random":
+        o, d, tm = _rays(100_003, 12, -12.0, 12.0, dev)
+        lane = torch.arange(tm.shape[0], device=dev)
+        tm = torch.where((lane % 10 == 3) & (lane < 50_000), 1.5, tm)
+        return o, d, tm.contiguous()
+    pix = torch.from_numpy(R._morton_pixel_order(cam.image_width, cam.image_height)).to(dev)
+    o, d, tm = (x.contiguous() for x in generate_rays(cam.init(dev), pix // cam.image_width,
+                                                       pix % cam.image_width, pix, torch.zeros_like(pix), 3))
+    if which == "camera":
+        return o, d, tm
+    t, kind, idx = hit_kernel.closest_sphere_quad_plain(o, d, tm, sph, quad)
+    hit = t < 3e38
+    p = o + torch.where(hit, t, 0.0)[:, None] * d
+    i_s = idx.long().clamp_max(sph.shape[1] - 1)
+    n = p - (sph[0:3, i_s].T + (sph[3:6, i_s] - sph[0:3, i_s]).T * tm[:, None])
+    n = torch.where((n * d).sum(dim=1, keepdim=True) > 0, -n, n)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(4)
+    nd = torch.randn(d.shape, generator=gen, device=dev)
+    nd = nd / nd.norm(dim=1, keepdim=True)
+    nd = torch.where((nd * n).sum(dim=1, keepdim=True) < 0, -nd, nd)
+    keep = hit.nonzero()[:, 0][: 32 * (hit.sum().item() // 32) - 21]  # bounce rays only, a short warp last
+    return p[keep].contiguous(), nd[keep].contiguous(), tm[keep].contiguous()
+
+
+@pytest.mark.parametrize("which", ["camera", "bounce", "random"])
+def test_kernel_counts_equal_plain(cuda, which):
+    """K1's counts of its tile cull (the culled variant, given a counts buffer) equal its
+    plain version's, summed over two launches; its hits are bit-equal to those of the launch
+    without the buffer; a table of one tile counts nothing."""
+    sph, quad, _, _ = _k1_tables("balls", cuda)
+    o, d, tm = _balls_rays(which, sph, quad, cuda)
+    want = {}
+    hit_kernel.closest_sphere_quad_plain(o, d, tm, sph, quad, counts=want)
+    counts = torch.zeros(len(hit_kernel.K1_COUNTS), dtype=torch.int64, device=cuda)
+    with_counts = [hit_kernel.closest_sphere_quad(o, d, tm, sph, quad, counts=counts) for _ in range(2)]
+    bare = hit_kernel.closest_sphere_quad(o, d, tm, sph, quad)
+    torch.cuda.synchronize()
+    assert counts.tolist() == [2 * want[k] for k in hit_kernel.K1_COUNTS], (counts.tolist(), want)
+    assert 0 < want["k1_tiles_entered"] < want["k1_tiles_swept"] < want["k1_tile_slots"]
+    for got in with_counts:
+        assert torch.equal(got[0].view(torch.int32), bare[0].view(torch.int32))
+        assert torch.equal(got[1], bare[1]) and torch.equal(got[2], bare[2])
+    c_sph, c_quad, _, _ = _k1_tables("cornell", cuda)
+    none = torch.zeros_like(counts)
+    hit_kernel.closest_sphere_quad(o, d, tm, c_sph, c_quad, counts=none)
+    assert none.tolist() == [0] * len(hit_kernel.K1_COUNTS)
+
+
+def test_render_counts_equal_the_kernels_calls(cuda, monkeypatch):
+    """RenderStats' K1 counts of a balls render through the graphs equal those of the same
+    render by the eager loop, and the plain version's counts of every K1 call of that loop
+    summed."""
+    from tpupt_torch.render import renderer as R
+
+    scene, cam = balls_scene(64, 4)
+    cam.max_depth = 12
+    compiled = scene.compile(device=cuda)
+    _, _, st_g = render_image(compiled, cam, seed=9, progress=False)
+    real, summed = hit_kernel.closest_sphere_quad, dict.fromkeys(hit_kernel.K1_COUNTS, 0)
+
+    def counted(o, d, time, sph, quad, tmin=1e-3, counts=None):
+        mine = {}
+        hit_kernel.closest_sphere_quad_plain(o, d, time, sph, quad, tmin, counts=mine)
+        for key in summed:
+            summed[key] += mine[key]
+        return real(o, d, time, sph, quad, tmin, counts=counts)
+
+    monkeypatch.setattr(hit_kernel, "closest_sphere_quad", counted)
+    with R.plain_launches():
+        _, _, st_e = render_image(compiled, cam, seed=9, progress=False)
+    stats = [{key: getattr(st, key) for key in hit_kernel.K1_COUNTS} for st in (st_g, st_e)]
+    assert stats[0] == stats[1] == summed
+    assert st_g.k1_lanes == st_g.lane_slots and st_g.k1_tile_slots == 61 * st_g.k1_lanes
+    assert 0 < st_g.k1_tiles_entered < st_g.k1_tiles_swept < st_g.k1_tile_slots
+
+
 @pytest.mark.parametrize("which", K1_TABLES)
 def test_kernel_edge_rays(cuda, which):
     """NaN and infinite components, times outside [0,1], directions that are not unit or

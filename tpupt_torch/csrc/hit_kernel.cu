@@ -26,6 +26,11 @@
 //           CULL_MARGIN times the distance (1-norm) of its origin to the box; see
 //           ops/hit_kernel.py for why that drops no hit. The plain version skips the
 //           same (ray, tile) pairs, so the two stay bit-equal whatever the boxes are.
+//   counts  optional (null: nothing counted), and only in the culled variant: four int64
+//           sums that a launch adds to, in the order of ops/hit_kernel.py's K1_COUNTS:
+//           lanes (rays below n_rays), lanes x the table's tiles, the tiles each lane
+//           enters (every tile for a lane that may not cull) and, over warps, the tiles
+//           the warp swept x its lanes: what the warps paid for the rays' own entries.
 //
 // Bound. Per ray, a sphere costs 28 float operations, a quad 49 and a tile's box 25
 // (adds, multiplies, one divide or sqrt; compares, minima and maxima not counted),
@@ -58,6 +63,15 @@
 //   together skip most of the table. Tiles keep the table's order, so indices and
 //   ties do not move. The kernel is compiled with and without the cull and the launch
 //   picks by the table's size: the code's mere presence cost one-tile tables 3-6%.
+// - The culled variant counts its cull: in a tile its warp sweeps, each lane adds to its
+//   entered and swept tiles in registers (a skipped tile adds nothing, so the skip path,
+//   most of the tiles, costs nothing more: counted on every tile it cost 3-5% on balls
+//   rays). Where a counts buffer is given (the render graphs), a warp sums them at its end
+//   (a ballot, __popc, __reduce_add_sync), a block in shared memory, and two threads a
+//   block add the block's two sums to the buffer with 64-bit atomics; the lanes and tile
+//   slots follow from n_rays, added once by block 0 (on balls camera rays four atomics a
+//   block cost 2.0%, two 1.6%). With no buffer the launch skips all that. The hits do not
+//   depend on it.
 
 #include <cuda_runtime.h>
 
@@ -83,7 +97,8 @@ closest_sphere_quad_kernel(const float* __restrict__ o, const float* __restrict_
                            const float4* __restrict__ boxes, int n_sph,
                            const float4* __restrict__ quad, int n_quad, float tmin,
                            float* __restrict__ t_out, int* __restrict__ kind_out,
-                           int* __restrict__ idx_out, int n_rays) {
+                           int* __restrict__ idx_out, int n_rays,
+                           unsigned long long* __restrict__ counts) {
   __shared__ float4 s_sph[SPH_TILE * SPH_F4];
   __shared__ float4 s_quad[QUAD_TILE * QUAD_F4];
   __shared__ float4 s_box[SPH_TILE / CULL_TILE * BOX_F4];
@@ -118,6 +133,7 @@ closest_sphere_quad_kernel(const float* __restrict__ o, const float* __restrict_
   float best_t = BIG;
   int best_kind = 0;
   int best_idx = 0;
+  unsigned entered = 0, swept = 0;  // CULL: tiles this lane entered, tiles its warp swept
 
   // ---- spheres (sphere.rs:64-100) ----
   for (int base = 0; base < n_sph; base += SPH_TILE) {
@@ -145,6 +161,10 @@ closest_sphere_quad_kernel(const float* __restrict__ o, const float* __restrict_
         enters = live && (!may_cull || ((tn <= tf) && (tf >= 0.f)));
       }
       if (!__any_sync(0xffffffffu, enters)) continue;  // no ray of the warp enters the tile
+      if constexpr (CULL) {  // a tile that the warp skips adds to neither: none of its rays enters
+        entered += enters;
+        ++swept;
+      }
       const int j_end = min(n, (k + 1) * CULL_TILE);
       for (int j = k * CULL_TILE; j < j_end; ++j) {
         const float4 c = s_sph[SPH_F4 * j];      // c1 xyz, r
@@ -209,23 +229,46 @@ closest_sphere_quad_kernel(const float* __restrict__ o, const float* __restrict_
     kind_out[ray] = best_kind;
     idx_out[ray] = best_idx;
   }
+
+  if constexpr (CULL) {
+    // every thread of the block gets here (no thread has returned), or none: counts is the launch's
+    if (counts != nullptr) {
+      __shared__ unsigned long long s_counts[2];  // the block's tiles entered, tiles swept
+      if (threadIdx.x < 2) s_counts[threadIdx.x] = 0;
+      __syncthreads();
+      const unsigned lanes = __popc(__ballot_sync(0xffffffffu, live));
+      const unsigned warp_entered = __reduce_add_sync(0xffffffffu, entered);
+      if ((threadIdx.x & 31) == 0 && lanes > 0) {
+        atomicAdd(&s_counts[0], static_cast<unsigned long long>(warp_entered));
+        atomicAdd(&s_counts[1], static_cast<unsigned long long>(swept) * lanes);
+      }
+      __syncthreads();
+      if (threadIdx.x < 2 && s_counts[threadIdx.x] != 0) atomicAdd(&counts[2 + threadIdx.x], s_counts[threadIdx.x]);
+      if (blockIdx.x == 0 && threadIdx.x == 0) {  // the launch's lanes and tile slots, once
+        atomicAdd(&counts[0], static_cast<unsigned long long>(n_rays));
+        atomicAdd(&counts[1], static_cast<unsigned long long>(n_rays) * ((n_sph + CULL_TILE - 1) / CULL_TILE));
+      }
+    }
+  }
 }
 
 }  // namespace
 
 // sph and quad are the packed tables (n_sph x 8 and n_quad x 16 floats), boxes the boxes
-// of sph's tiles (ceil(n_sph / CULL_TILE) x 12 floats); all 16-byte aligned.
+// of sph's tiles (ceil(n_sph / CULL_TILE) x 12 floats); all 16-byte aligned. counts: null,
+// or 4 int64 that a culled launch adds its counts to (a table of one tile counts nothing).
 extern "C" int tpupt_closest_sphere_quad(const float* o, const float* d, const float* time,
                                          const float* sph, const float* boxes, int n_sph,
                                          const float* quad, int n_quad, float tmin,
                                          float* t_out, int* kind_out,
-                                         int* idx_out, int n_rays, void* stream) {
+                                         int* idx_out, int n_rays, long long* counts, void* stream) {
   if (n_rays <= 0) return 0;
   const int blocks = (n_rays + THREADS - 1) / THREADS;
   const auto kernel = n_sph > CULL_TILE ? closest_sphere_quad_kernel<true> : closest_sphere_quad_kernel<false>;
   kernel<<<blocks, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       o, d, time, reinterpret_cast<const float4*>(sph), reinterpret_cast<const float4*>(boxes),
-      n_sph, reinterpret_cast<const float4*>(quad), n_quad, tmin, t_out, kind_out, idx_out, n_rays);
+      n_sph, reinterpret_cast<const float4*>(quad), n_quad, tmin, t_out, kind_out, idx_out, n_rays,
+      reinterpret_cast<unsigned long long*>(counts));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -15,6 +15,11 @@ cut after the last real row (``pack_tables``); the packed pair is made at a tabl
 first use and kept with it, beside the boxes of the sphere table's tiles
 (``sphere_tile_boxes``): a ray tests a tile of CULL_TILE consecutive spheres only if
 it enters the tile's box, in the kernel and in the plain version alike.
+
+What the cull saves is counted where a caller asks (``closest_sphere_quad(counts=...)``,
+the render's stage runners): K1_COUNTS, summed over the calls into an int64 tensor, by the
+kernel's culled variant and by the plain version alike. A table of one tile, which is
+swept whole, counts nothing.
 """
 
 from __future__ import annotations
@@ -50,6 +55,11 @@ PAD_BOX = 1.0e30  # lo = hi of a tile without a real sphere: no ray of the scene
 CULL_MARGIN = 4.0e-3
 CULL_DIR = 1.0e-5
 CULL_ORIGIN = 1.0e30  # |o|_1 of a ray that may cull: keeps the box test finite
+
+# the cull's counts, in the order of the kernel's counts buffer: rays; rays x the table's
+# tiles; the tiles each ray enters (every tile for a ray that may not cull); over warps of 32
+# consecutive rays, the tiles the warp swept (one of its rays entered them) x its rays
+K1_COUNTS = ("k1_lanes", "k1_tile_slots", "k1_tiles_entered", "k1_tiles_swept")
 
 launches = 0  # kernel launches since the last reset (plain-version calls not counted)
 captured = 0  # calls recorded into a CUDA graph under capture since render/graph.py's last reset
@@ -185,23 +195,33 @@ def _check(o, d, time, sph, quad):
         raise ValueError("closest_sphere_quad: sizes must fit int32")
 
 
-def closest_sphere_quad(o, d, time, sph, quad, tmin=1e-3):
+def closest_sphere_quad(o, d, time, sph, quad, tmin=1e-3, counts=None):
     """Closest sphere/quad hit per ray -> (t [B] f32, kind [B] int32, idx [B] int32).
 
     CUDA tensors launch the kernel; CPU tensors run `closest_sphere_quad_plain`.
     Either way the outputs carry no gradient: the rays are taken detached, and
-    tables that require grad raise.
+    tables that require grad raise. counts, if given, is an int64 tensor [4] on the
+    rays' device to which the call adds its K1_COUNTS; the hits do not depend on it.
     """
     _check(o, d, time, sph, quad)
+    if counts is not None and (counts.shape != (len(K1_COUNTS),) or counts.dtype != torch.int64
+                               or counts.device != o.device or not counts.is_contiguous()):
+        raise ValueError(f"closest_sphere_quad: counts must be a contiguous int64 [{len(K1_COUNTS)}] tensor "
+                         f"on {o.device}")
     o, d, time = o.detach(), d.detach(), time.detach()
     if o.device.type == "cpu":
-        return closest_sphere_quad_plain(o, d, time, sph, quad, tmin)
+        if counts is None:
+            return closest_sphere_quad_plain(o, d, time, sph, quad, tmin)
+        mine = {}
+        out = closest_sphere_quad_plain(o, d, time, sph, quad, tmin, counts=mine)
+        counts += torch.tensor([mine.get(key, 0) for key in K1_COUNTS], dtype=torch.int64)
+        return out
     if o.device.type != "cuda":
         raise ValueError(f"closest_sphere_quad: unsupported device {o.device}")
-    return _launch(o, d, time, sph, quad, tmin)
+    return _launch(o, d, time, sph, quad, tmin, counts)
 
 
-def _launch(o, d, time, sph, quad, tmin):
+def _launch(o, d, time, sph, quad, tmin, counts=None):
     global launches, captured
     from .. import build
 
@@ -211,7 +231,7 @@ def _launch(o, d, time, sph, quad, tmin):
     fn.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
     ]
     sph_packed, quad_packed, boxes = _packed(sph, quad)
     b = o.shape[0]
@@ -226,7 +246,7 @@ def _launch(o, d, time, sph, quad, tmin):
         o.data_ptr(), d.data_ptr(), time.data_ptr(),
         sph_packed.data_ptr(), boxes.data_ptr(), sph_packed.shape[0],
         quad_packed.data_ptr(), quad_packed.shape[0], float(tmin),
-        t.data_ptr(), kind.data_ptr(), idx.data_ptr(), b, stream,
+        t.data_ptr(), kind.data_ptr(), idx.data_ptr(), b, None if counts is None else counts.data_ptr(), stream,
     )
     if err != 0:
         raise RuntimeError(f"closest_sphere_quad: CUDA launch failed with error {err}")
@@ -254,8 +274,10 @@ def closest_sphere_quad_plain(o, d, time, sph, quad, tmin=1e-3, counts=None, cul
     best, which is the kernel's sequential strict-< rule. cull=False tests every tile:
     the same hits (the boxes are conservative), which the tests hold. counts (a dict)
     gets the ray x box, ray x sphere and ray x quad tests made over the rows up to the
-    last real one, and warp_sphere_tests: the ray x sphere tests when 32 consecutive
-    rays sweep every tile that one of them enters, as the kernel's warps do.
+    last real one, warp_sphere_tests: the ray x sphere tests when 32 consecutive
+    rays sweep every tile that one of them enters, as the kernel's warps do, and, where the
+    table is culled, the cull's K1_COUNTS as the kernel's culled variant counts them, its
+    warps being 32 consecutive rays, the last one short where B is not a multiple of 32.
     """
     b = o.shape[0]
     ox, oy, oz = o[:, 0:1], o[:, 1:2], o[:, 2:3]
@@ -268,6 +290,13 @@ def closest_sphere_quad_plain(o, d, time, sph, quad, tmin=1e-3, counts=None, cul
     cull = cull and n_s > CULL_TILE
     if counts is not None:
         counts.update(box_tests=0, sphere_tests=0, warp_sphere_tests=0, quad_tests=b * n_q)
+        if cull:
+            tiles = -(-n_s // CULL_TILE)
+            counts.update(k1_lanes=b, k1_tile_slots=b * tiles)
+            # the rays of each warp of 32 consecutive rays, the last one short
+            warp_lanes = torch.full((-(-b // 32),), 32, dtype=torch.int64, device=o.device)
+            warp_lanes[-1:] = b - 32 * (warp_lanes.shape[0] - 1)
+            entered = swept = 0
 
     def fold(t, ok, base, kind):
         nonlocal best_t, best_k, best_i
@@ -322,7 +351,12 @@ def closest_sphere_quad_plain(o, d, time, sph, quad, tmin=1e-3, counts=None, cul
             live = enters[:, 0] if cull else torch.ones(b, dtype=torch.bool, device=o.device)
             warps = torch.nn.functional.pad(live, (0, -b % 32)).reshape(-1, 32).any(dim=1)
             counts["warp_sphere_tests"] += int(warps.sum()) * 32 * rows
+            if cull:
+                entered = entered + live.sum()
+                swept = swept + (warps * warp_lanes).sum()
         fold(t, ok, base, KIND_SPHERE)
+    if counts is not None and cull:
+        counts.update(k1_tiles_entered=int(entered), k1_tiles_swept=int(swept))
 
     for base in range(0, quad.shape[1], PLAIN_BLOCK):
         (nx, ny, nz, qx, qy, qz, ux, uy, uz, vx, vy, vz, wx, wy, wz, dd) = (

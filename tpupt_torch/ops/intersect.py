@@ -162,7 +162,7 @@ def _mxu_sweep(sd, o, d, tmin, tmax):
     return _fold_sweep(sd.n_tris, blk, lambda base, n: _tri_block_mxu(sd, base, n, phi, tmin, tmax).T)
 
 
-def closest_hit(sd: "D.SceneData", o, d, time, tmin, tmax, alive=None) -> Hit:
+def closest_hit(sd: "D.SceneData", o, d, time, tmin, tmax, alive=None, k1_counts=None) -> Hit:
     """Closest hit across all geometry (World::intersect_all, world.rs:47-62).
 
     Light rows sit after object rows (scene/compile.py), so strict-min selection
@@ -171,9 +171,9 @@ def closest_hit(sd: "D.SceneData", o, d, time, tmin, tmax, alive=None) -> Hit:
 
     alive (optional [B] bool): dead lanes give the triangle kernels t_in = 0, so
     they cull every cluster or box and stop widening their warp's visits (their hit
-    record is garbage either way; callers mask by alive).
+    record is garbage either way; callers mask by alive). k1_counts: hit_kernels'.
     """
-    t_sq, kind_sq, idx_sq, tri = hit_kernels(sd, o, d, time, tmin, tmax, alive)
+    t_sq, kind_sq, idx_sq, tri = hit_kernels(sd, o, d, time, tmin, tmax, alive, k1_counts)
     is_sph = kind_sq == KIND_SPHERE
     t_s = torch.where(is_sph, t_sq, BIG)
     i_s = torch.where(is_sph, idx_sq, 0)
@@ -197,15 +197,16 @@ def closest_hit(sd: "D.SceneData", o, d, time, tmin, tmax, alive=None) -> Hit:
     return _make_hit(sd, o, d, time, t_best, kind, idx, valid, tri_aux)
 
 
-def hit_kernels(sd, o, d, time, tmin, tmax, alive=None):
+def hit_kernels(sd, o, d, time, tmin, tmax, alive=None, k1_counts=None):
     """closest_hit's kernel calls -> (t_sq, kind_sq, idx_sq, tri): K1's outputs (or its plain
     version's), and the triangle route's (t, idx, the kernels' attributes or None on the
     sweeps), None where the scene has no triangle (``has_real_tris``: its table's pad row
     hits nothing). The selection and the hit's attributes are the caller's: closest_hit's,
-    or the shading kernel's (``ops/wavefront_kernel.py``)."""
+    or the shading kernel's (``ops/wavefront_kernel.py``). k1_counts, if given, gets K1's
+    counts of its tile cull added (``hit_kernel.K1_COUNTS``)."""
     sph, quad = hit_kernel.tables(sd)
     t_sq, kind_sq, idx_sq = hit_kernel.closest_sphere_quad(
-        o.contiguous(), d.contiguous(), time.contiguous(), sph, quad, tmin=tmin
+        o.contiguous(), d.contiguous(), time.contiguous(), sph, quad, tmin=tmin, counts=k1_counts
     )
     if not sd.has_real_tris:
         return t_sq, kind_sq, idx_sq, None

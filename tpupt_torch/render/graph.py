@@ -9,10 +9,11 @@ stage a conditional WHILE node, whose body is the captured iteration followed by
 condition kernel, set once before the node as well, since ``lax.while_loop`` tests its
 condition before the first body; the captured compactions between the stages. A
 launch is one replay of a small captured reset and one ``cudaGraphLaunch`` of the
-chain; the host reads the launch's counters (rays, iterations and lanes with work a
-stage) once, and with them the chain's stamps of the card's clock: at its head, after
-each stage's WHILE node and after the film (tpupt_torch/trace.py places them on the
-host's clock as ``card.chain`` and ``card.stage{i}``, a stage with the compaction before it).
+chain; the host reads the launch's counters (rays, K1's counts of its tile cull,
+iterations and lanes with work a stage) once, and with them the chain's stamps of the
+card's clock: at its head, after each stage's WHILE node and after the film
+(tpupt_torch/trace.py places them on the host's clock as ``card.chain`` and
+``card.stage{i}``, a stage with the compaction before it).
 
 The first launch of a shape runs its first wavefront iteration eagerly, which builds
 what the kernels keep between calls (K1's packed tables, K4's wide tree, the packet
@@ -185,7 +186,8 @@ class LaunchGraphs:
         spp_limit), known to the host. The film is a buffer of the graphs: valid until the
         next launch of the same shape. Graphs whose scene moved since their capture
         (``_stamp``) are dropped and made anew. counts (a dict), if given, gets the launch's
-        "work_lanes", "lane_slots", "device_s" and "fused_iterations" added (``_Launch.run``).
+        "work_lanes", "lane_slots", "device_s", "fused_iterations" and K1's counts
+        (``hit_kernel.K1_COUNTS``) added (``_Launch.run``).
         """
         if n_work0 == 0:  # no lane starts a sample: nothing to trace
             return torch.zeros((pix.shape[0] // r, 3), dtype=REAL, device=pix.device), 0, 0
@@ -364,8 +366,11 @@ class _Launch:
         with trace.span("render.wait") as wait:
             loop_cond.check(loop_cond.lib().tpupt_loop_graph_launch(parent, stream),
                             "render graph: launching the chain")
-            read = torch.cat([st.rays, st.iters, st.work, self.stamps]).tolist()  # the one host read of the launch
-        rays, iters, work, stamps = read[0], read[1 : n + 1], read[n + 1 : 2 * n + 1], read[2 * n + 1 :]
+            # the one host read of the launch
+            read = torch.cat([st.rays, st.k1_counts, st.iters, st.work, self.stamps]).tolist()
+        m = 1 + len(hit_kernel.K1_COUNTS)
+        rays, k1, read = read[0], read[1:m], read[m:]
+        iters, work, stamps = read[:n], read[n : 2 * n], read[2 * n :]
         on_card = [i - e for i, e in zip(iters, eager)]
         calls = {key: sum(c[key] * i for c, i in zip(self.per_iteration, on_card)) for key in self.per_iteration[0]}
         _add_launches(calls)
@@ -377,6 +382,8 @@ class _Launch:
             counts["lane_slots"] = counts.get("lane_slots", 0) + sum(slots)
             counts["device_s"] = counts.get("device_s", 0.0) + 1e-9 * (stamps[n + 1] - stamps[0])
             counts["fused_iterations"] = counts.get("fused_iterations", 0) + (sum(iters) if st.fused else 0)
+            for key, c in zip(hit_kernel.K1_COUNTS, k1):
+                counts[key] = counts.get(key, 0) + c
         if wait is not None:
             trace.card(wait, "card.chain", stamps[0], stamps[n + 1], first_stage=start)
             for i in range(start, n):

@@ -43,7 +43,7 @@ from ..ops import lights as light_ops
 from ..ops.bsdf import bsdf_eval, bsdf_pdf, bsdf_sample, make_shade
 from ..ops.envmap import sample_environment
 from ..ops.intersect import closest_hit, hit_kernels
-from ..ops import loop_cond, wavefront_kernel
+from ..ops import hit_kernel, loop_cond, wavefront_kernel
 from ..scene import data as D
 from .camera import generate_rays
 
@@ -55,7 +55,7 @@ MIN_BOUNCES = 5  # camera.rs:172
 
 def bounce_step(
     sd, o, d, time, T, L, alive, bounce, pixel_ids, sample_ids, seed, p_light, p_bsdf, has_lights,
-    *, detach=False,
+    *, detach=False, k1_counts=None,
 ):
     """One bounce of the reference estimator (camera.rs:177-226) over a lane batch.
 
@@ -69,10 +69,11 @@ def bounce_step(
     carrying no gradient, E[d(f)/p] = d E[f/p]. It also guards the pdf division: a
     zero pdf kills the lane instead of making a NaN, which would poison the backward
     pass even where a mask drops it. detach=False is the forward estimator.
+    k1_counts, if given, gets K1's counts of its tile cull added (``closest_hit``).
     """
     sg = torch.Tensor.detach if detach else (lambda x: x)
 
-    hit = closest_hit(sd, o, d, time, T_MIN, T_MAX, alive=alive)
+    hit = closest_hit(sd, o, d, time, T_MIN, T_MAX, alive=alive, k1_counts=k1_counts)
 
     # miss -> environment (camera.rs:180-183)
     env = sample_environment(sd, d)
@@ -213,7 +214,8 @@ def compaction_thresholds(b: int, clusters: bool = False) -> list[int]:
 
 
 def trace_film_streamed(
-    sd, cam, pixel_ids, rows, cols, sample0, spp_limit, seed, k, max_depth, has_lights, log=None, stages=None
+    sd, cam, pixel_ids, rows, cols, sample0, spp_limit, seed, k, max_depth, has_lights, log=None, stages=None,
+    k1_counts=None,
 ):
     """Path-regeneration wavefront: each lane streams up to k samples of its pixel.
 
@@ -229,7 +231,8 @@ def trace_film_streamed(
     sample0 is a per-lane tensor. Returns (film_sum [B,3] in the caller's lane
     order, rays_traced int, wavefront iterations int). log (a list), if given, gets
     (stage, lanes with work) at every host read; stages (a list), if given, gets (lanes,
-    iterations, lanes with work summed over those iterations) of each stage.
+    iterations, lanes with work summed over those iterations) of each stage. k1_counts
+    (an int64 tensor [4]), if given, gets K1's counts of its tile cull added.
     """
     b = pixel_ids.shape[0]
     dev = pixel_ids.device
@@ -252,7 +255,7 @@ def trace_film_streamed(
             if n_work == 0 or n_work <= thr:
                 break
             s, n_rays = _stream_step(
-                s, sd, cam, spp_limit, seed, k, max_depth, has_lights, p_light, p_bsdf
+                s, sd, cam, spp_limit, seed, k, max_depth, has_lights, p_light, p_bsdf, k1_counts=k1_counts
             )
             rays = rays + n_rays
             ran += 1
@@ -325,7 +328,8 @@ class StreamStages:
       camera of the launch's shape;
     - ``reset()``: stage 0 to the state before the first iteration; the film bank and the
       counters to zero;
-    - ``step(i)``: one iteration of stage i, its ray count added to ``rays`` on the device.
+    - ``step(i)``: one iteration of stage i, its ray count added to ``rays`` and K1's counts
+      of its tile cull to ``k1_counts`` (``hit_kernel.K1_COUNTS``) on the device.
       On the card (``fused``) the regeneration kernel, the hit kernels and the shading
       kernel (``ops/wavefront_kernel.py``) update the state in place; on the CPU
       ``_stream_step`` runs, then ``copy_`` back into the state;
@@ -354,6 +358,7 @@ class StreamStages:
                         for key, v in proto.items()} for n in sizes]
         self.bank = torch.zeros((b, 3), dtype=REAL, device=device)
         self.rays = torch.zeros(1, dtype=torch.int64, device=device)
+        self.k1_counts = torch.zeros(len(hit_kernel.K1_COUNTS), dtype=torch.int64, device=device)
         self.iters = torch.zeros(len(sizes), dtype=torch.int64, device=device)
         self.work = torch.zeros(len(sizes), dtype=torch.int64, device=device)  # lanes with work, summed
         self.fused = torch.device(device).type == "cuda"
@@ -370,6 +375,7 @@ class StreamStages:
         reset_stream_state(self.states[0])
         self.bank.zero_()
         self.rays.zero_()
+        self.k1_counts.zero_()
         self.iters.zero_()
         self.work.zero_()
 
@@ -377,12 +383,12 @@ class StreamStages:
         s = self.states[i]
         if self.fused:
             wavefront_kernel.regenerate(s, self.cam, self.seed, self.k, self.spp_limit, self.rays)
-            hits = hit_kernels(self.sd, s["o"], s["d"], s["time"], T_MIN, T_MAX, s["alive"])
+            hits = hit_kernels(self.sd, s["o"], s["d"], s["time"], T_MIN, T_MAX, s["alive"], self.k1_counts)
             wavefront_kernel.shade(s, self.sd, hits, self.seed, self.max_depth, self.has_lights, self.p_light,
                                    self.p_bsdf)
             return
         out, n_rays = _stream_step(s, self.sd, self.cam, self.spp_limit, self.seed, self.k, self.max_depth,
-                                   self.has_lights, self.p_light, self.p_bsdf)
+                                   self.has_lights, self.p_light, self.p_bsdf, k1_counts=self.k1_counts)
         for key in STEP_KEYS:
             s[key].copy_(out[key])
         self.rays.add_(n_rays)
@@ -442,10 +448,11 @@ def copy_camera(dst, src):
 
 
 def _stream_step(s, sd, cam, spp_limit, seed, k, max_depth, has_lights, p_light, p_bsdf,
-                 detach=False):
+                 detach=False, k1_counts=None):
     """One wavefront iteration: regenerate exhausted lanes, bounce, flush films.
 
     Also the trip of the differentiable film scan (render/diff.py), with detach=True.
+    k1_counts, if given, gets K1's counts of its tile cull added (``bounce_step``).
     """
     o, d, time = s["o"], s["d"], s["time"]
     T, L, film, alive = s["throughput"], s["radiance"], s["film"], s["alive"]
@@ -471,7 +478,7 @@ def _stream_step(s, sd, cam, spp_limit, seed, k, max_depth, has_lights, p_light,
     # ---- one bounce (identical estimator to trace_radiance) ----
     o_next, d_next, T, L, alive_h = bounce_step(
         sd, o, d, time, T, L, alive, bounce, s["pix"], cur_sample, seed,
-        p_light, p_bsdf, has_lights, detach=detach,
+        p_light, p_bsdf, has_lights, detach=detach, k1_counts=k1_counts,
     )
     bounce = bounce + 1
     # max_depth exit: the reference loop just stops after max_depth iterations

@@ -25,6 +25,7 @@ import torch
 
 from .. import trace
 from ..core.dtypes import NP_REAL
+from ..ops import hit_kernel
 from ..scene.compile import CompiledScene
 from .camera import Camera
 from .film import tonemap_quantize
@@ -53,6 +54,13 @@ class RenderStats:
     # iterations whose step ran on the regeneration and shading kernels (CUDA graphs; 0 on the
     # eager loop)
     fused_iterations: int = 0
+    # K1's tile cull (ops/hit_kernel.py, K1_COUNTS), summed over its calls in the wavefront; 0
+    # where the sphere table is one tile, swept whole: the rays K1 took; those rays times the
+    # table's tiles; the tiles the rays entered; the tiles their warps swept times the warps' rays
+    k1_lanes: int = 0
+    k1_tile_slots: int = 0
+    k1_tiles_entered: int = 0
+    k1_tiles_swept: int = 0
 
     @property
     def paths_per_s(self) -> float:
@@ -132,8 +140,8 @@ def _chunk_film(sd, cam, pixel_ids, n_valid, sample0, spp_limit, seed, *, k, r, 
     block) start at spp_limit, so they never start a path. On CUDA the launch runs as
     graphs: those of `graphs` (a LaunchGraphs), else graphs made for this launch alone;
     the film is then a buffer of the graphs, valid until their next launch. counts (a
-    dict), if given, gets the launch's "work_lanes", "lane_slots", "device_s" and
-    "fused_iterations" added.
+    dict), if given, gets the launch's "work_lanes", "lane_slots", "device_s",
+    "fused_iterations" and K1's counts (``hit_kernel.K1_COUNTS``) added.
     """
     pb = pixel_ids.shape[0]
     dev = pixel_ids.device
@@ -153,13 +161,17 @@ def _chunk_film(sd, cam, pixel_ids, n_valid, sample0, spp_limit, seed, *, k, r, 
         with LaunchGraphs() as own:
             return own.run(*args, **kw)
     stages = []
+    k1 = torch.zeros(len(hit_kernel.K1_COUNTS), dtype=torch.int64, device=dev) if counts is not None else None
     with trace.span("render.eager"):
         film, rays, iters = trace_film_streamed(
-            sd, cam, pix, rows, cols, lane_sample0, spp_limit, seed, k, max_depth, has_lights, stages=stages
+            sd, cam, pix, rows, cols, lane_sample0, spp_limit, seed, k, max_depth, has_lights, stages=stages,
+            k1_counts=k1,
         )
     if counts is not None:
         counts["work_lanes"] = counts.get("work_lanes", 0) + sum(work for _, _, work in stages)
         counts["lane_slots"] = counts.get("lane_slots", 0) + sum(lanes * ran for lanes, ran, _ in stages)
+        for key, n in zip(hit_kernel.K1_COUNTS, k1.tolist()):
+            counts[key] = counts.get(key, 0) + n
     return film.reshape(r, pb, 3).sum(dim=0), rays, iters
 
 
@@ -376,6 +388,8 @@ def _render_launches(compiled, camera, seed, rays_per_launch, samples_per_launch
     stats.lane_slots = counts.get("lane_slots", 0)
     stats.device_s = counts.get("device_s", 0.0)
     stats.fused_iterations = counts.get("fused_iterations", 0)
+    for key in hit_kernel.K1_COUNTS:
+        setattr(stats, key, counts.get(key, 0))
     with trace.span("render.tonemap"):
         mean = (film / spp).reshape(h, w, 3)
         return tonemap_quantize(mean), mean.astype(NP_REAL), stats
