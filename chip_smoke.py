@@ -66,6 +66,13 @@ _stream_step, their plain version, on the Cornell box's stage runner at 360,000 
 (100 samples a lane): one iteration of each route from the same state, at stage 0 and at
 the last stage (11,250 lanes), every field bit for bit; each kernel, the fused iteration
 and the plain one are timed there as CUDA graphs, and every render counts their launches.
+The film's two kernels (csrc/film.cu: the add of a launch's film into the float64 film
+and the resolve into the mean and the image) are held bit for bit, a NaN's payload aside,
+against their plain versions on the same inputs copied to the CPU, at the Cornell and balls
+frames (360,000 and 202,200 pixels): one launch of the whole frame and then padded pixel
+blocks, their films with NaN, +-inf, -0.0 and negative values, and the tonemap's edges;
+both are timed there against their bytes, and every render counts one add a launch and
+one resolve.
 The repository ships no asset files, so the script writes stand-ins for scene 6's
 meshes (bunny.obj, spot.obj, cow.obj: lumpy spheres of the real meshes' triangle
 counts) and its environment map (grace_probe_latlong.hdr: a synthetic sky) to a
@@ -127,6 +134,13 @@ BVH_ATTR_BYTES = 16 * 4  # the attribute row of a ray's winner
 KW1_LANE_BYTES, KW1_NEW_BYTES = 1 + 4 + 4, 3 * 4 + 65
 KW2_LANE_BYTES, KW2_LIVE_BYTES = 2 * 41, 48 + 24
 WAVEFRONT = dict(width=600, spp=100, iterations=6)  # Cornell's runner; iterations into a stage
+# the film's kernels (csrc/film.cu) at the frame cells' shapes (width, height, spp): one launch
+# of the whole frame, then launches of FILM_BLOCK-pixel blocks over it, the last padded. add
+# reads a lane's film (12 B) and id (4 B) and reads and writes its pixel's float64 film (48 B);
+# resolve reads the film (24 B) and writes the mean (12 B) and the image (3 B) of a pixel
+FILM_SHAPES = {"cornell": (600, 600, 100), "balls": (600, 337, 100)}
+FILM_BLOCK = 65536
+FILM_ADD_BYTES, FILM_RESOLVE_BYTES = 12 + 4 + 48, 24 + 12 + 3
 MXU_VALID_SHARE = 0.999  # the matmul sweep against the dense sweep (tests/test_bvh.py:129-135)
 MXU_TOL = 1e-4
 
@@ -800,6 +814,119 @@ def masked_rays(rays):
     return o, d, t_in
 
 
+def film_launch(rng, order, lo, pb):
+    """A launch of the film's add over the pixels order[lo : lo + pb] -> (out [pb, 3] f32,
+    ids [pb] i32, n_valid): radiance sums with NaN, +-inf, -0.0 and negative values among the
+    real lanes; NaN in the padded ones, whose id 0 would show any add they made at pixel 0."""
+    n_valid = min(pb, order.shape[0] - lo)
+    ids = np.zeros(pb, np.int32)
+    ids[:n_valid] = order[lo : lo + n_valid]
+    out = (rng.exponential(size=(pb, 3)) * 10.0 ** rng.integers(-3, 3)).astype(np.float32)
+    for value, share in ((np.nan, 1e-5), (np.inf, 1e-5), (-np.inf, 1e-5), (-0.0, 1e-3), (-1.0, 1e-3)):
+        out[rng.random(out.shape) < share] = value
+    out[n_valid:] = np.nan
+    return out, ids, n_valid
+
+
+def bits_differ(a, b) -> int:
+    """Elements of two float arrays of one shape whose bits differ, a NaN's payload aside (the
+    card's arithmetic makes the canonical NaN, the host's keeps an operand's)."""
+    a, b = np.asarray(a), np.asarray(b)
+    nan = np.isnan(a) & np.isnan(b)
+    return int(((a.view(f"u{a.itemsize}") != b.view(f"u{b.itemsize}")) & ~nan).sum())
+
+
+def tonemap_edges(spp):
+    """[n, 3] float64 films whose means over spp sit on the tonemap's edges: (m/256)^2, where
+    g * 256 is the integer m, and the doubles beside it; 0.999^2 and beside; NaN, +-inf,
+    -0.0, negatives, tiny and huge values."""
+    at = (np.arange(257, dtype=np.float64) / 256.0) ** 2
+    c = 0.999 ** 2
+    mean = np.concatenate([at, np.nextafter(at, -np.inf), np.nextafter(at, np.inf),
+                           [c, np.nextafter(c, 0.0), np.nextafter(c, 2.0), np.nan, np.inf, -np.inf, -0.0,
+                            -1.0, 5e-324, 1e300]])
+    mean = mean[: len(mean) // 3 * 3]
+    with np.errstate(over="ignore"):
+        return (mean * spp).reshape(-1, 3)
+
+
+def check_film(dev):
+    """film_kernel.add over the launches of each FILM_SHAPES frame, and film_kernel.resolve of
+    the film they make and of the tonemap's edges, on the card against add_plain and
+    resolve_plain on the same inputs copied to the CPU -> (mismatches by kernel, elements
+    compared). A mismatch is an element whose bits differ, a NaN's payload aside."""
+    from tpupt_torch.ops import film_kernel
+    from tpupt_torch.render.renderer import _pixel_order
+
+    bad = {"film add": 0, "film resolve": 0}
+    compared = {"film add": 0, "film resolve": 0}
+    for seed, (shape, (w, h, spp)) in enumerate(FILM_SHAPES.items()):
+        rng = np.random.default_rng(40 + seed)
+        order = _pixel_order(w, h)
+        npix = order.shape[0]
+        card = torch.zeros((npix, 3), dtype=torch.float64, device=dev)
+        plain = torch.zeros((npix, 3), dtype=torch.float64)
+        launches = [(0, npix)] + [(lo, FILM_BLOCK) for lo in range(0, npix, FILM_BLOCK)]
+        for lo, pb in launches:
+            out, ids, n_valid = film_launch(rng, order, lo, pb)
+            film_kernel.add(card, torch.from_numpy(out).to(dev), torch.from_numpy(ids).to(dev), n_valid)
+            film_kernel.add_plain(plain, torch.from_numpy(out), torch.from_numpy(ids), n_valid)
+        n = bits_differ(card.cpu().numpy(), plain.numpy())
+        bad["film add"] += n
+        compared["film add"] += plain.numel()
+        films = {"its launches": plain, "the tonemap's edges": torch.from_numpy(tonemap_edges(spp))}
+        for what, film in films.items():
+            img_c, mean_c = film_kernel.resolve(film.to(dev), spp)
+            img_p, mean_p = film_kernel.resolve_plain(film, spp)
+            m = int((img_c.cpu() != img_p).sum()) + bits_differ(mean_c.cpu().numpy(), mean_p.numpy())
+            bad["film resolve"] += m
+            compared["film resolve"] += 2 * film.numel()
+            log(f"film [{shape}, {what}]: resolve at {spp} spp over {film.shape[0]} pixels, image and mean "
+                f"against the plain version: {m} elements differ")
+        log(f"film [{shape} {w}x{h}]: add over {len(launches)} launches (the whole frame, then "
+            f"{len(launches) - 1} blocks of {FILM_BLOCK} pixels, the last with {FILM_BLOCK - (npix % FILM_BLOCK)} "
+            f"padded lanes), {int(np.isnan(plain.numpy()).any(-1).sum())} pixels NaN: {n} elements differ "
+            f"from the plain version")
+    return bad, compared
+
+
+def time_film(dev):
+    """The film's kernels at each FILM_SHAPES frame: add of one launch over the whole frame and
+    resolve of the frame, kernel ms (cuda_ms), the plain versions' ms (add_plain on the card;
+    resolve_plain on the host, numpy, as render_image resolved before it had the kernel) and the
+    bytes bound -> {shape: {"film add": numbers, "film resolve": numbers}}."""
+    from tpupt_torch.ops import film_kernel
+    from tpupt_torch.render.renderer import _pixel_order
+
+    res = {}
+    for shape, (w, h, spp) in FILM_SHAPES.items():
+        npix = w * h
+        rng = np.random.default_rng(7)
+        film = torch.from_numpy(rng.exponential(size=(npix, 3)) * spp).to(dev)
+        out = torch.from_numpy(rng.exponential(size=(npix, 3)).astype(np.float32)).to(dev)
+        ids = torch.from_numpy(_pixel_order(w, h).copy()).to(dev)
+        add_ms = cuda_ms(lambda: film_kernel.add(film, out, ids, npix))
+        add_plain_ms = cuda_ms(lambda: film_kernel.add_plain(film, out, ids, npix), reps=5, rounds=3)
+        resolve_ms = cuda_ms(lambda: film_kernel.resolve(film, spp))
+        host = film.cpu()
+        times = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            film_kernel.resolve_plain(host, spp)
+            times.append(1e3 * (time.perf_counter() - t0))
+        nums = {}
+        for k, ms, plain_ms, nbytes in (("film add", add_ms, add_plain_ms, npix * FILM_ADD_BYTES),
+                                        ("film resolve", resolve_ms, float(np.median(times)),
+                                         npix * FILM_RESOLVE_BYTES)):
+            nums[k] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound(0, nbytes)[0], bytes=nbytes, pixels=npix)
+        res[shape] = nums
+        log(f"film [{shape} {w}x{h}]: add {add_ms:.4f} ms (bytes bound {nums['film add']['bound_ms']:.4f} ms, "
+            f"{nums['film add']['bytes']} B), add_plain on the card {add_plain_ms:.4f} ms; resolve "
+            f"{resolve_ms:.4f} ms (bytes bound {nums['film resolve']['bound_ms']:.4f} ms, "
+            f"{nums['film resolve']['bytes']} B), resolve_plain on the host {nums['film resolve']['plain_ms']:.3f} ms")
+    return res
+
+
 def time_bvh(shape, batch, sd, rays):
     """K4's kernel and plain times on one batch, its bound from the binary node visits and
     triangle tests that the plain version counts on these rays (at K2/K3's flops a box and
@@ -936,6 +1063,9 @@ def render(label, compiled, cam, counters, kernel_ms, compare=True):
     if not launches["KW1"] == launches["KW2"] == st.fused_iterations == st.iterations:
         raise SystemExit(f"chip_smoke: the {label} render's iterations must each launch KW1 and KW2 once: "
                          f"{launches['KW1']}, {launches['KW2']}, {st.fused_iterations} fused of {st.iterations}")
+    if launches["film add"] != st.launches or launches["film resolve"] != 1:  # the film on the card
+        raise SystemExit(f"chip_smoke: the {label} render's {st.launches} launches added the film "
+                         f"{launches['film add']} times and resolved it {launches['film resolve']} times")
     if mean.shape != (cam.image_height, cam.image_width, 3) or fin < 0.99 or not mu > 0.0:
         raise SystemExit(f"chip_smoke: the {label} film is wrong: shape {mean.shape}, finite share "
                          f"{fin}, mean {mu}")
@@ -1058,22 +1188,24 @@ def random_mesh_scene(width, spp, n=60_000, seed=2):
 
 
 def zero_counts():
-    from tpupt_torch.ops import bvh_kernel, hit_kernel, loop_cond, tri_kernel, wavefront_kernel
+    from tpupt_torch.ops import bvh_kernel, film_kernel, hit_kernel, loop_cond, tri_kernel, wavefront_kernel
 
     hit_kernel.launches = 0
     tri_kernel.launches.update(flat=0, two_level=0)
     bvh_kernel.launches = 0
     loop_cond.launches = loop_cond.gate_launches = loop_cond.countdown_launches = 0
     wavefront_kernel.launches.update(regen=0, shade=0)
+    film_kernel.launches.update(add=0, resolve=0)
 
 
 def read_counts():
-    from tpupt_torch.ops import bvh_kernel, hit_kernel, loop_cond, tri_kernel, wavefront_kernel
+    from tpupt_torch.ops import bvh_kernel, film_kernel, hit_kernel, loop_cond, tri_kernel, wavefront_kernel
 
     return {"K1": hit_kernel.launches, "K2": tri_kernel.launches["flat"],
             "K3": tri_kernel.launches["two_level"], "K4": bvh_kernel.launches, "K5": loop_cond.launches,
             "K5 gate": loop_cond.gate_launches, "K5 countdown": loop_cond.countdown_launches,
-            "KW1": wavefront_kernel.launches["regen"], "KW2": wavefront_kernel.launches["shade"]}
+            "KW1": wavefront_kernel.launches["regen"], "KW2": wavefront_kernel.launches["shade"],
+            "film add": film_kernel.launches["add"], "film resolve": film_kernel.launches["resolve"]}
 
 
 def grad_box_scene(width, spp):
@@ -1762,8 +1894,9 @@ def main(argv=None) -> int:
 
     # ---- build every library of the port, one compiler per source, all at once ----
     t0 = time.perf_counter()
-    reports = build.build_all(["hit_kernel", "tri_kernel", "bvh_kernel", "loop_cond", "wavefront", "native_host"])
-    log(f"build (nvcc x5, g++ x1, in parallel): {time.perf_counter() - t0:.2f} s")
+    reports = build.build_all(["hit_kernel", "tri_kernel", "bvh_kernel", "loop_cond", "wavefront", "film",
+                               "native_host"])
+    log(f"build (nvcc x6, g++ x1, in parallel): {time.perf_counter() - t0:.2f} s")
     for name, rep in reports.items():
         for line in rep.splitlines():
             if any(w in line for w in ("registers", "smem", "spill")):
@@ -1894,6 +2027,9 @@ def run(args, dev, hit_kernel, render_image, cornell_box_scene, balls_scene, eve
     wf_bad, wf_err = check_wavefront(wf_runner, wf_states)
     bad.update(wf_bad)
     err.update(wf_err)
+    film_bad, film_compared = check_film(dev)
+    bad.update(film_bad)
+    err.update({k: 0.0 for k in film_bad})  # held bit for bit
     if any(bad.values()):
         raise SystemExit(f"chip_smoke: kernels disagree with their plain versions: {bad}")
 
@@ -1935,6 +2071,10 @@ def run(args, dev, hit_kernel, render_image, cornell_box_scene, balls_scene, eve
     del wf_runner, wf_states
     for k in ("KW1", "KW2"):
         timing[k] = (wf0[k]["ms"], wf0["plain_iteration_ms"], wf0[k]["bound_ms"], "bytes")
+    film_times = time_film(dev)
+    for k in ("film add", "film resolve"):
+        f = film_times["cornell"][k]
+        timing[k] = (f["ms"], f["plain_ms"], f["bound_ms"], "bytes")
     kernel_ms = {k: v[0] for k, v in timing.items()}
 
     # ---- the main path: the renders through render_image, each by both routes ----
@@ -1977,7 +2117,7 @@ def run(args, dev, hit_kernel, render_image, cornell_box_scene, balls_scene, eve
     _, _, bbl = render("bigmesh stand-in, bvh=True", bigb, bcam, ["K4"],
                        dict(kernel_ms, K4=k4_times["bigmesh"]["camera"]["ms"]))
     launches = {"K1": cl["K1"], "K2": s6l["K2"], "K3": bl["K3"], "K4": s6bl["K4"], "K5": cl["K5"], "KW1": cl["KW1"],
-                "KW2": cl["KW2"]}
+                "KW2": cl["KW2"], "film add": cl["film add"], "film resolve": cl["film resolve"]}
     render_counts = {"cornell": cl, "scene6": s6l, "bigmesh": bl, "balls": ball, "env": el, **textured_kw,
                      "scene6 bvh": s6bl, "bigmesh bvh": bbl}
     k1_launches = {"cornell": cl["K1"], "scene6": s6l["K1"], "balls": ball["K1"], "env": el["K1"]}
@@ -2070,6 +2210,9 @@ def run(args, dev, hit_kernel, render_image, cornell_box_scene, balls_scene, eve
         # no Pallas kernel: XLA fuses the reference's jitted iteration by itself
         "KW1": ("KW1 regen_kernel", "tpupt_torch/csrc/wavefront.cu", "tpupt/render/integrator.py:306-322"),
         "KW2": ("KW2 shade_kernel", "tpupt_torch/csrc/wavefront.cu", "tpupt/render/integrator.py:306-322"),
+        # no Pallas kernel: the reference adds and resolves its film in numpy on the host
+        "film add": ("film_add_kernel", "tpupt_torch/csrc/film.cu", "tpupt/render/renderer.py:346"),
+        "film resolve": ("film_resolve_kernel", "tpupt_torch/csrc/film.cu", "tpupt/render/renderer.py:372-374"),
     }
     # the gradient modes' launches: the `grads` pass by the graphs (a replayed call)
     for mode in ("K5 gate", "K5 countdown"):
@@ -2098,7 +2241,7 @@ def run(args, dev, hit_kernel, render_image, cornell_box_scene, balls_scene, eve
         elif k == "K5":  # every render: a stage's first test and one an iteration, on the card
             paths = {"cornell": cl["K5"], "scene6": s6l["K5"], "bigmesh": bl["K5"], "balls": ball["K5"],
                      "env": el["K5"], **textured_k5, "scene6 bvh": s6bl["K5"], "bigmesh bvh": bbl["K5"]}
-        elif k in ("KW1", "KW2"):  # every render, once an iteration
+        elif k in ("KW1", "KW2", "film add", "film resolve"):  # every render: once an iteration; a launch; a call
             paths = {label: n[k] for label, n in render_counts.items()}
         elif k in ("K5 gate", "K5 countdown"):  # every gradient pass by the graphs: once a trip and a chunk
             paths = {label: (g["graphs"] if "graphs" in g else g)["counts"][k] for label, g in grads.items()}
@@ -2124,6 +2267,9 @@ def run(args, dev, hit_kernel, render_image, cornell_box_scene, balls_scene, eve
                                lanes_tail=wf_tail["lanes"], ms_tail=wf_tail[k]["ms"],
                                plain_ms_tail=wf_tail["plain_iteration_ms"], bound_ms_tail=wf_tail[k]["bound_ms"],
                                bytes_tail=wf_tail[k]["bytes"], iteration_ms_tail=wf_tail["iteration_ms"])
+        if k in ("film add", "film resolve"):  # both frames; resolve's plain_ms is numpy's on the host
+            kernels[-1].update(shapes=film_times, elements_compared=film_compared[k],
+                               plain_on="card" if k == "film add" else "host")
         if k == "K4":  # both shapes, and K2 / K3 on the same batches; the matmul sweep beside K2
             kernels[-1].update(shapes={shape: dict(v, launches=paths[f"{shape} bvh"])
                                        for shape, v in k4_times.items()},

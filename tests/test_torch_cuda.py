@@ -1566,3 +1566,91 @@ def test_render_grads_sharded_nccl_world_of_one(cuda):
     _assert_grads_rel_l1(g_2, g_e)
     (graphs,) = compiled.data._radiance_graphs.values()
     assert graphs.capture_s == 0.0 and graphs.trips > 0
+
+
+def _same_bits(a, b):
+    """Float arrays bit-equal, a NaN's payload aside (the card's arithmetic makes the canonical
+    NaN, the host's keeps an operand's)."""
+    a, b = np.asarray(a), np.asarray(b)
+    na, nb = np.isnan(a), np.isnan(b)
+    assert a.shape == b.shape and a.dtype == b.dtype and np.array_equal(na, nb)
+    assert a[~na].tobytes() == b[~nb].tobytes()
+
+
+def test_film_kernels_bit_equal_to_their_twins(cuda):
+    """csrc/film.cu's add over 12 launches (4 pixel blocks of 16384, the last padded, whose
+    padded lanes hold NaN; NaN and +-inf among the real lanes too) and its resolve, against
+    ops/film_kernel.py's plain versions and numpy's formulas, on that film and on films of
+    the tonemap's edges (tests/test_torch_film.py)."""
+    from test_torch_film import edge_film
+    from tpupt_torch.ops import film_kernel
+    from tpupt_torch.render.film import tonemap_quantize
+
+    rng = np.random.default_rng(11)
+    npix, pb = 60000, 16384
+    order = rng.permutation(npix).astype(np.int32)
+    card = torch.zeros((npix, 3), dtype=torch.float64, device=cuda)
+    plain = torch.zeros((npix, 3), dtype=torch.float64)
+    added = film_kernel.launches["add"]
+    for _ in range(3):
+        for lo in range(0, npix, pb):
+            n_valid = min(pb, npix - lo)
+            ids = np.zeros(pb, np.int32)
+            ids[:n_valid] = order[lo : lo + n_valid]
+            out = rng.exponential(size=(pb, 3)).astype(np.float32) * np.float32(10.0 ** rng.integers(-3, 3))
+            out[rng.random(out.shape) < 0.001] = np.nan
+            out[rng.random(out.shape) < 0.001] = np.inf
+            out[rng.random(out.shape) < 0.001] = -np.inf
+            out[n_valid:] = np.nan
+            film_kernel.add(card, torch.from_numpy(out).to(cuda), torch.from_numpy(ids).to(cuda), n_valid)
+            film_kernel.add_plain(plain, torch.from_numpy(out), torch.from_numpy(ids), n_valid)
+    assert film_kernel.launches["add"] - added == 12
+    _same_bits(card.cpu().numpy(), plain.numpy())
+    for spp in (1, 7, 100):
+        for film in (plain, torch.from_numpy(edge_film(spp, spp))):
+            img_c, mean_c = film_kernel.resolve(film.to(cuda), spp)
+            img_p, mean_p = film_kernel.resolve_plain(film, spp)
+            want = film.numpy() / spp
+            assert img_c.cpu().numpy().tobytes() == img_p.numpy().tobytes() == tonemap_quantize(want).tobytes()
+            _same_bits(mean_c.cpu().numpy(), mean_p.numpy())
+            _same_bits(mean_c.cpu().numpy(), want.astype(np.float32))
+
+
+@pytest.mark.parametrize("case", ["cornell", "balls", "blocks"])
+def test_card_render_resolves_its_film_as_numpy(cuda, case, tmp_path):
+    """The image and mean of a card render (the benchmark's Cornell and balls frames, and
+    Cornell at 300 px over 2 pixel blocks, the last padded, and 2 sample chunks) bit-equal
+    numpy's formulas over the float64 film its checkpoint holds; the same render again,
+    without a checkpoint, takes its inputs from the kept buffers and gives the same bits."""
+    from tpupt_torch.render.film import tonemap_quantize
+
+    build, size, spp, kw = {"cornell": (cornell_box_scene, 600, 100, {}), "balls": (balls_scene, 600, 100, {}),
+                            "blocks": (cornell_box_scene, 300, 16,
+                                       dict(rays_per_launch=65536, samples_per_launch=8))}[case]
+    scene, cam = build(size, spp)
+    compiled = scene.compile(device=cuda)
+    ck = str(tmp_path / "film.npz")
+    img, mean, st = render_image(compiled, cam, seed=5, progress=False, checkpoint_path=ck, **kw)
+    assert st.launches == (4 if case == "blocks" else 1) and st.host_free_launches == 0
+    want = (np.load(ck)["film"] / spp).reshape(cam.image_height, cam.image_width, 3)
+    assert img.tobytes() == tonemap_quantize(want).tobytes()
+    _same_bits(mean, want.astype(np.float32))
+    img2, mean2, st2 = render_image(compiled, cam, seed=5, progress=False, **kw)
+    assert st2.host_free_launches == st2.launches == st.launches
+    assert img2.tobytes() == img.tobytes()
+    _same_bits(mean2, mean)
+
+
+def test_successive_card_frames_do_not_alias(cuda):
+    """Each call's image and mean are arrays of its own: a later frame neither shares memory
+    with an earlier one nor writes into it."""
+    scene, cam = cornell_box_scene(96, 8)
+    compiled = scene.compile(device=cuda)
+    img1, mean1, _ = render_image(compiled, cam, seed=1, progress=False)
+    kept_img, kept_mean = img1.copy(), mean1.copy()
+    img2, mean2, st2 = render_image(compiled, cam, seed=2, progress=False)
+    assert not any(np.shares_memory(a, b) for a in (img1, mean1) for b in (img2, mean2))
+    assert img1.tobytes() == kept_img.tobytes() and mean1.tobytes() == kept_mean.tobytes()
+    assert mean2.tobytes() != mean1.tobytes() and st2.host_free_launches == st2.launches
+    _, mean3, _ = render_image(compiled, cam, seed=1, progress=False)
+    assert mean3.tobytes() == kept_mean.tobytes()

@@ -42,6 +42,7 @@ def test_recording_off_keeps_nothing_and_changes_nothing():
         assert sp is None
     scene, cam = _small()
     compiled = scene.compile(device=CPU)
+    R.render_image(compiled, cam, progress=False)  # the schedule's inputs made and kept: both calls below reuse them
     img_off, mean_off, st_off = R.render_image(compiled, cam, progress=False)
     with trace.recording() as rec:
         img_on, mean_on, st_on = R.render_image(compiled, cam, progress=False)

@@ -2,21 +2,32 @@
 
 Counterpart of ``tpupt/render/renderer.py``. The (pixel, sample) space is flattened
 into lanes of fixed-size launches; each launch runs the path-regeneration wavefront
-and its film is accumulated on the host in float64. On a CUDA device a launch is one
-device program, as the reference's jitted launch is: CUDA graphs whose wavefront
-loops run on the card (render/graph.py), captured at the first launch of a shape and
-kept on the compiled scene, as ``jax.jit`` keeps ``_chunk_film``: later launches and
-later calls, with any seed and camera, replay them. The CPU runs the eager loop
-(integrator.trace_film_streamed), which is also the graphs' plain version
+and its film is added into a float64 film that lives on the scene's device. On a CUDA
+device a launch is one device program, as the reference's jitted launch is: CUDA graphs
+whose wavefront loops run on the card (render/graph.py), captured at the first launch of
+a shape and kept on the compiled scene, as ``jax.jit`` keeps ``_chunk_film``: later
+launches and later calls, with any seed and camera, replay them. The CPU runs the eager
+loop (integrator.trace_film_streamed), which is also the graphs' plain version
 (``plain_launches``). Runs on the compiled scene's device; with a mesh
 (parallel/sharding.py), each process traces its own sample slice of every launch on its
 device and the film is all-reduced once a launch, outside the graphs.
+
+The film stays on the device (ops/film_kernel.py): each launch's film is added in at its
+pixel ids there, and once a call the film is resolved there into the mean radiance and
+the quantized image, the two arrays that cross to the host. A launch schedule's inputs
+(the Morton order's pixel blocks, their lanes and first samples) are made on the device
+at their first use and kept on the compiled scene, so a repeated call uploads nothing and
+runs nothing over pixels on the host. The film crosses to the host only where an option
+asks for it: ``checkpoint_path`` (the film), ``on_launch`` (the mean so far), and
+``debug_checks`` reads one flag a launch, and the bad pixels' ids only when it is set.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
+import functools
 import os
 import time as _time
 
@@ -24,11 +35,9 @@ import numpy as np
 import torch
 
 from .. import trace
-from ..core.dtypes import NP_REAL
-from ..ops import hit_kernel
+from ..ops import film_kernel, hit_kernel
 from ..scene.compile import CompiledScene
 from .camera import Camera
-from .film import tonemap_quantize
 from ..parallel.sharding import Mesh, all_reduce_film
 from .graph import LaunchGraphs, launch_graphs
 from .integrator import trace_film_streamed
@@ -61,6 +70,9 @@ class RenderStats:
     k1_tile_slots: int = 0
     k1_tiles_entered: int = 0
     k1_tiles_swept: int = 0
+    # launches that took their inputs from the kept buffers (made by an earlier call) and
+    # added their film on the device with no host copy of it
+    host_free_launches: int = 0
 
     @property
     def paths_per_s(self) -> float:
@@ -124,11 +136,84 @@ def _morton_pixel_order(w: int, h: int) -> np.ndarray:
     return np.argsort(code, kind="stable").astype(np.int32)
 
 
+@functools.lru_cache(maxsize=8)
+def _pixel_order(w: int, h: int) -> np.ndarray:
+    """``_morton_pixel_order(w, h)``, made once per (w, h) and kept read-only: the host's copy
+    of the order, whose ids the errors quote."""
+    order = _morton_pixel_order(w, h)
+    order.flags.writeable = False
+    return order
+
+
 def lane_first_samples(pb, n_valid, r, k, sample0, spp_limit) -> np.ndarray:
     """Each lane's first sample id [r*pb] int32, on the host: lane j*pb + i takes pixel i's
     samples from sample0 + j*k; lanes past n_valid (padding) start at spp_limit."""
     first = sample0 + np.repeat(np.arange(r, dtype=np.int64) * k, pb)
     return np.where(np.tile(np.arange(pb) < n_valid, r), first, spp_limit).astype(np.int32)
+
+
+def _lanes(ids, r, width):
+    """A pixel block's lanes, r a pixel (lane j*pb + i is pixel i's) -> (pix, rows, cols) on
+    the ids' device."""
+    pix = ids.repeat(r)
+    return pix, pix // width, pix % width
+
+
+def _first_samples(pb, n_valid, r, k, sample0, spp_limit, device):
+    """``lane_first_samples`` on `device` -> (lane_sample0, n_work0: the count of lanes with
+    a first sample to take)."""
+    first = lane_first_samples(pb, n_valid, r, k, sample0, spp_limit)
+    return torch.from_numpy(first).to(device), int((first < spp_limit).sum())
+
+
+class _Schedule:
+    """The inputs of one launch schedule's launches on the scene's device, each made at its
+    first use and kept: a pixel block's ids (the Morton order's slice, padded with id 0) and
+    lanes, a launch's first samples. A later call of the schedule uploads nothing."""
+
+    def __init__(self, order, device, pb, r, k, spp, spl, dev_sample0, width):
+        self.order, self.device, self.pb, self.r, self.k = order, device, pb, r, k
+        self.spp, self.spl, self.dev_sample0, self.width = spp, spl, dev_sample0, width
+        self._blocks: dict[int, tuple] = {}
+        self._launches: dict[tuple, tuple] = {}
+
+    def launch(self, pblk, schunk):
+        """-> (ids [pb] int32 on the device, n_valid, (pix, rows, cols, lane_sample0, n_work0),
+        kept): kept False when this call made any of them."""
+        kept = True
+        lo = pblk * self.pb
+        n_valid = min(self.pb, self.order.shape[0] - lo)
+        block = self._blocks.get(pblk)
+        if block is None:
+            kept = False
+            ids = np.zeros(self.pb, np.int32)  # padded lanes take id 0 and never start a path
+            ids[:n_valid] = self.order[lo : lo + n_valid]
+            ids = torch.from_numpy(ids).to(self.device)
+            block = self._blocks[pblk] = (ids, *_lanes(ids, self.r, self.width))
+        first = self._launches.get((pblk, schunk))
+        if first is None:
+            kept = False
+            first = self._launches[(pblk, schunk)] = _first_samples(
+                self.pb, n_valid, self.r, self.k, schunk * self.spl + self.dev_sample0, self.spp, self.device)
+        ids, *lanes = block
+        return ids, n_valid, (*lanes, *first), kept
+
+
+KEPT_SCHEDULES = 4  # launch schedules kept on a compiled scene; the least recently used goes
+
+
+def _schedule(compiled, w, h, pb, r, k, spp, spl, n_dev, dev_sample0) -> _Schedule:
+    """The launch schedule's kept inputs on `compiled` (made at first use, freed with it or
+    when KEPT_SCHEDULES later-used schedules are kept)."""
+    kept = compiled.__dict__.setdefault("_render_schedules", collections.OrderedDict())
+    key = (w, h, pb, r, k, spp, n_dev, dev_sample0)
+    sched = kept.pop(key, None)
+    if sched is None:
+        sched = _Schedule(_pixel_order(w, h), compiled.data.device, pb, r, k, spp, spl, dev_sample0, w)
+    kept[key] = sched
+    while len(kept) > KEPT_SCHEDULES:
+        kept.popitem(last=False)
+    return sched
 
 
 def _chunk_film(sd, cam, pixel_ids, n_valid, sample0, spp_limit, seed, *, k, r, max_depth,
@@ -137,21 +222,28 @@ def _chunk_film(sd, cam, pixel_ids, n_valid, sample0, spp_limit, seed, *, k, r, 
 
     r lanes per pixel, each streaming its own k-sample slice (replica j takes
     samples [sample0 + j*k, ...)). Lanes past n_valid (padding of the final pixel
-    block) start at spp_limit, so they never start a path. On CUDA the launch runs as
-    graphs: those of `graphs` (a LaunchGraphs), else graphs made for this launch alone;
-    the film is then a buffer of the graphs, valid until their next launch. counts (a
-    dict), if given, gets the launch's "work_lanes", "lane_slots", "device_s",
-    "fused_iterations" and K1's counts (``hit_kernel.K1_COUNTS``) added.
+    block) start at spp_limit, so they never start a path. See ``_trace_launch``.
     """
-    pb = pixel_ids.shape[0]
-    dev = pixel_ids.device
     with trace.span("render.inputs"):
-        pix = pixel_ids.repeat(r)
-        rows = pix // width
-        cols = pix % width
-        lane_sample0 = lane_first_samples(pb, n_valid, r, k, sample0, spp_limit)
-        n_work0 = int((lane_sample0 < spp_limit).sum())  # lanes with a first sample to take
-        lane_sample0 = torch.from_numpy(lane_sample0).to(dev)
+        inputs = (*_lanes(pixel_ids, r, width),
+                  *_first_samples(pixel_ids.shape[0], n_valid, r, k, sample0, spp_limit, pixel_ids.device))
+    return _trace_launch(sd, cam, inputs, spp_limit, seed, k=k, r=r, max_depth=max_depth,
+                         has_lights=has_lights, graphs=graphs, counts=counts)
+
+
+def _trace_launch(sd, cam, inputs, spp_limit, seed, *, k, r, max_depth, has_lights, graphs=None,
+                  counts=None):
+    """One launch -> (film sums [pb,3], rays, iterations). inputs: (pix, rows, cols,
+    lane_sample0, n_work0), the launch's lanes (r a pixel) on the scene's device and the count
+    of those with a first sample to take. On CUDA the launch runs as graphs: those of
+    `graphs` (a LaunchGraphs), else graphs made for this launch alone; the film is then a
+    buffer of the graphs, valid until their next launch. counts (a dict), if given, gets the
+    launch's "work_lanes", "lane_slots", "device_s", "fused_iterations" and K1's counts
+    (``hit_kernel.K1_COUNTS``) added.
+    """
+    pix, rows, cols, lane_sample0, n_work0 = inputs
+    pb = pix.shape[0] // r
+    dev = pix.device
     if dev.type == "cuda" and not _plain:
         args = (sd, cam, pix, rows, cols, lane_sample0, n_work0)
         kw = dict(spp_limit=spp_limit, seed=seed, k=k, r=r, max_depth=max_depth, has_lights=has_lights,
@@ -200,13 +292,20 @@ def render_image(
     rays_per_launch bounds the lane count (pixel block size) of a launch;
     samples_per_launch bounds how many samples each lane streams per launch.
 
+    The float64 film lives on the scene's device: each launch's film is added in there,
+    and the call's end resolves it there into the image and the mean, two arrays that
+    cross to the host once and belong to the caller (fresh at every call). The launch
+    schedule's inputs (about 16 B a lane) are kept on the compiled scene, for its
+    last KEPT_SCHEDULES schedules, so a repeated call uploads none.
+
     checkpoint_path: persist (film accumulator, launch cursor, stats) after every
-    launch and resume from it when the file exists. Resuming is exact: the
+    launch, the film copied to the host for it, and resume from it when the file
+    exists (the film back onto the device). Resuming is exact: the
     counter-based RNG makes a resumed render bit-identical to an uninterrupted
     one. The config fingerprint is verified on load; a mismatch raises.
 
     on_launch(mean_so_far [H,W,3] f32, samples_done_fraction) is called after
-    every launch.
+    every launch, with the film so far over its samples copied to the host.
 
     profile_dir: trace the render with torch.profiler (CPU, and CUDA on a card) and
     write a Chrome trace, ``render_rank{i}.json`` (i = the mesh index, 0 without a
@@ -214,8 +313,8 @@ def render_image(
     (tpupt_torch/trace.py) merged in on the profiler's clock: those of the recording in
     progress (from its start), else of one made for this call.
 
-    debug_checks: validate every launch's film for NaN/Inf and raise with the
-    launch coordinates.
+    debug_checks: validate every launch's film for NaN/Inf on the device (one flag read a
+    launch) and raise with the launch coordinates and the first bad pixels' ids.
 
     mesh: a parallel.sharding.Mesh to scale the render over (one process a device;
     every rank of the mesh calls render_image). Each rank traces its own r*k-sample
@@ -227,7 +326,10 @@ def render_image(
     it ``render.order``, ``render.inputs``, ``render.capture``, ``render.wait`` (CUDA
     graphs: from the chain's launch to the launch's host read; the card's ``card.chain``
     and ``card.stage{i}`` under it) or ``render.eager`` (the eager loop),
-    ``render.all_reduce``, ``render.readback``, ``render.accumulate``, ``render.tonemap``.
+    ``render.all_reduce``, ``render.accumulate`` (the film's add on the device, the checks,
+    the checkpoint, ``on_launch``), ``render.tonemap`` (the film resolved on the device) and
+    ``render.readback`` (the film or the mean so far to the host for a checkpoint or
+    ``on_launch``; the image and the mean at the call's end).
     """
     if mesh is not None and not isinstance(mesh, Mesh):
         raise TypeError(f"render_image: mesh must be a parallel.sharding.Mesh, got {type(mesh).__name__}")
@@ -290,7 +392,7 @@ def _render_launches(compiled, camera, seed, rays_per_launch, samples_per_launch
 
     # the reference's fingerprint layout (..., n_dev, Morton pixel order = 1)
     fingerprint = np.array([w, h, spp, seed, pb, k, r, camera.max_depth, n_dev, 1], dtype=np.int64)
-    film = np.zeros((npix, 3), dtype=np.float64)
+    film = torch.zeros((npix, 3), dtype=torch.float64, device=dev)
     stats = RenderStats()
     start_it = 0
     if checkpoint_path is not None and os.path.exists(checkpoint_path):
@@ -300,7 +402,7 @@ def _render_launches(compiled, camera, seed, rays_per_launch, samples_per_launch
                 f"checkpoint {checkpoint_path} was written for a different render "
                 f"config ({ck['fingerprint']} vs {fingerprint})"
             )
-        film = ck["film"]
+        film = torch.tensor(ck["film"], dtype=torch.float64, device=dev)
         start_it = int(ck["next_it"])
         stats.launches = start_it
         stats.paths = int(ck["paths"])
@@ -311,7 +413,8 @@ def _render_launches(compiled, camera, seed, rays_per_launch, samples_per_launch
     # this rank's first sample of a launch, after the launch's first sample
     dev_sample0 = 0 if mesh is None else mesh.index * r * k
     with trace.span("render.order"):
-        order = _morton_pixel_order(w, h)
+        order = _pixel_order(w, h)
+        sched = _schedule(compiled, w, h, pb, r, k, spp, spl, n_dev, dev_sample0)
     graphs = launch_graphs(compiled) if dev.type == "cuda" and not _plain else None
     capture0 = graphs.capture_s if graphs is not None else 0.0
     counts = {}
@@ -319,20 +422,14 @@ def _render_launches(compiled, camera, seed, rays_per_launch, samples_per_launch
     for it in range(start_it, total_launches):
         pblk, schunk = divmod(it, n_sample_chunks)
         with trace.span("render.inputs"):
-            lo = pblk * pb
-            ids = order[lo : min(lo + pb, npix)]
-            n_valid = len(ids)
-            if n_valid < pb:  # pad the final block (padded lanes never start a path)
-                ids = np.concatenate([ids, np.zeros(pb - n_valid, np.int32)])
-            ids_dev = torch.from_numpy(ids).to(dev)
+            ids, n_valid, inputs, kept = sched.launch(pblk, schunk)
         for attempt in (0, 1):  # one launch-level retry on a transient failure
             try:
                 if _fault_hook is not None:
                     _fault_hook(it)
-                out, rays, iters = _chunk_film(
-                    sd, cam, ids_dev, n_valid, schunk * spl + dev_sample0,
-                    spp, seed, k=k, r=r, max_depth=camera.max_depth,
-                    has_lights=compiled.has_lights, width=w, graphs=graphs, counts=counts,
+                out, rays, iters = _trace_launch(
+                    sd, cam, inputs, spp, seed, k=k, r=r, max_depth=camera.max_depth,
+                    has_lights=compiled.has_lights, graphs=graphs, counts=counts,
                 )
                 break
             except TransientLaunchError:
@@ -343,28 +440,30 @@ def _render_launches(compiled, camera, seed, rays_per_launch, samples_per_launch
         if mesh is not None:  # after the retry scope: every rank joins once a launch
             with trace.span("render.all_reduce"):
                 out, rays = all_reduce_film(mesh, out, rays)
-        with trace.span("render.readback"):
-            out = out.cpu().numpy()
         with trace.span("render.accumulate"):
             if debug_checks:
-                bad = ~np.isfinite(out[:n_valid])
-                if bad.any():
-                    lanes = np.nonzero(bad.any(axis=-1))[0]
+                bad = ~torch.isfinite(out[:n_valid]).all(dim=-1)
+                if bool(bad.any()):  # the one flag a launch; the ids only when it is set
+                    lanes = torch.nonzero(bad).flatten().cpu().numpy()
                     raise FloatingPointError(
                         f"non-finite film at launch {it} (pixel block {pblk}, sample "
                         f"chunk {schunk}): {len(lanes)} pixels, first ids "
-                        f"{ids[lanes[:8]].tolist()}"
+                        f"{order[pblk * pb + lanes[:8]].tolist()}"
                     )
-            film[ids[:n_valid]] += out[:n_valid].astype(np.float64)
+            film_kernel.add(film, out, ids, n_valid)
             stats.launches += 1
             stats.paths += n_valid * min(spl, spp - schunk * spl)
             stats.rays += rays
             stats.iterations += iters
+            copied = False
             if checkpoint_path is not None and (mesh is None or mesh.index == 0):
+                with trace.span("render.readback"):
+                    host_film = film.cpu().numpy()
+                copied = True
                 tmp = checkpoint_path + ".tmp.npz"
                 np.savez(
                     tmp,
-                    film=film,
+                    film=host_film,
                     next_it=np.int64(it + 1),
                     paths=np.int64(stats.paths),
                     rays=np.int64(stats.rays),
@@ -375,10 +474,11 @@ def _render_launches(compiled, camera, seed, rays_per_launch, samples_per_launch
                 mesh.barrier()  # no rank runs ahead of the launch the checkpoint holds
             if on_launch is not None:
                 done_spp = min((schunk + 1) * spl, spp)
-                on_launch(
-                    (film / max(done_spp, 1)).reshape(h, w, 3).astype(np.float32),
-                    (it + 1) / total_launches,
-                )
+                with trace.span("render.readback"):
+                    so_far = (film / max(done_spp, 1)).reshape(h, w, 3).to(torch.float32).cpu().numpy()
+                copied = True
+                on_launch(so_far, (it + 1) / total_launches)
+            stats.host_free_launches += int(kept and not copied)
             if progress and schunk == n_sample_chunks - 1:
                 print(f"  pixel block {pblk + 1}/{n_pixel_blocks} done", flush=True)
 
@@ -391,5 +491,6 @@ def _render_launches(compiled, camera, seed, rays_per_launch, samples_per_launch
     for key in hit_kernel.K1_COUNTS:
         setattr(stats, key, counts.get(key, 0))
     with trace.span("render.tonemap"):
-        mean = (film / spp).reshape(h, w, 3)
-        return tonemap_quantize(mean), mean.astype(NP_REAL), stats
+        img, mean = film_kernel.resolve(film, spp)
+    with trace.span("render.readback"):  # fresh host arrays, the caller's own
+        return img.cpu().numpy().reshape(h, w, 3), mean.cpu().numpy().reshape(h, w, 3), stats
